@@ -3,31 +3,67 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero):
+Phases (any failure exits non-zero; each prints its seconds):
   1. device: needs CUDA; prints the card (nvidia-smi name and power limit),
      torch's version and both TF32 flags;
-  2. build: compiles the port's CUDA kernels from piccolo_tpu_torch's
-     sources with nvcc, one process per source, all started together;
+  2. build: compiles every CUDA kernel source of piccolo_tpu_torch with
+     nvcc, one process per source, all started together;
   3. room: the bench's Stanford-scale synthetic room (60,000 points padded
      to 65,536; 50 translations x 8 yaws; 1024x512 main / 512x256 init
      images) and its slab GridPlan and HistPlan, built on the card;
   4. kernels vs their plain PyTorch versions at the main path's shapes
-     (slab counts exact and sums rtol 1e-5; block histogram bit-exact),
-     with CUDA-event timings, the bound and the one-call yardstick;
+     (f32 slab counts exact and sums rtol 1e-5; block histogram
+     bit-exact), with CUDA-event timings, the bound and the one-call
+     yardstick;
   5. a small room on the card against the same query on the CPU;
-  6. the main path: 1 warm-up and 5 timed queries through localize_query;
-     median t_err must be below 0.05 m and both kernels must have launched;
+  6. the library's main path: 1 warm-up and 5 timed queries through
+     localize_query; median t_err must be below 0.05 m and both kernels
+     must have launched;
   7. one more query under torch.profiler: device time per stage, the idle
      share and the heaviest kernels;
-then one JSON line of kernel measurements and, last, the device line.
+  8. the CLI's room: a ray-cast Stanford tree (1 room, 4 queries, 60,000
+     points, 1024x512 panoramas) in a temporary directory, loaded as the
+     CLI loads it under configs/stanford.ini;
+  9. the layout kernels at the CLI's shapes: a compact and a q8 plan with
+     point ids (the re-bake path) from the CLI's room and grids, each
+     kernel against its plain version on every group with the first
+     query's init image (counts exact, sums rtol 1e-5), group 0 timed;
+     and the masked histogram at N = 524,288 and 3,001 (bit-exact), timed;
+ 10. eight in-process runs of ``piccolo_tpu_torch.main`` on that tree with
+     configs/stanford.ini:
+       A  the shipped config (the ladder's own route),
+       B  forced compact plan, built and saved to a plan cache,
+       B' B again, loading the plan from the cache,
+       C  forced q8 plan,
+       D  sharpen_color off and a forced f32 plan (with a HistPlan),
+       E  D's config on the gather engine and the live splat,
+       F  sharpen_color off, the ladder's own choice under a plan budget
+          between the q8 and the compact estimates: a q8 plan, built in
+          line (the default lifecycle),
+       G  as F under 0.6 of the q8 estimate: a partial q8 plan with a
+          gather-engine tail, built on a background thread while the
+          first query runs the gather engine;
+     each must reach median t_err < 0.05 m and accuracy >= 0.75 and
+     launch its kernel on every query that has a plan; B and C must give
+     A's winners, B' B's, E D's, and F and G E's, within 1e-3 m;
+then one JSON line of kernel measurements (launches from the CLI run that
+drives each kernel) and, last, the device line.
 """
 
 from __future__ import annotations
 
+import contextlib
+import csv
+import glob
+import io
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -36,6 +72,9 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 SIZE = (6.0, 4.0, 3.0)
+CLI_QUERIES = 4
+CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                      "stanford.ini")
 
 
 def log(*a):
@@ -129,8 +168,8 @@ def phase_room(dev):
     log(f"HistPlan: {hplan.nbytes} B {tuple(hplan.planes.shape)}, built in "
         f"{t2 - t1:.3f} s")
     return dict(xyz=xyz, rgb=rgb, xyz_d=xyz_d, rgb_d=rgb_d, mask_d=mask_d,
-                lo=lo, hi=hi, trans=trans_p, rot=rot, valid=valid, plan=plan,
-                hplan=hplan)
+                lo=lo, hi=hi, trans=trans_p, trans_real=trans, rot=rot,
+                valid=valid, plan=plan, hplan=hplan)
 
 
 def _query_images(seed, xyz, rgb, dev):
@@ -139,6 +178,12 @@ def _query_images(seed, xyz, rgb, dev):
     gt_t, gt_ypr = random_pose_inside(np.random.default_rng(seed), SIZE)
     img_main = render_at(xyz, rgb, gt_t, gt_ypr, (512, 1024), device=dev)
     return gt_t, gt_ypr, img_main[::2, ::2].contiguous(), img_main
+
+
+def _bound(nbytes, ops):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def phase_kernels(room, dev):
@@ -172,7 +217,7 @@ def phase_kernels(room, dev):
                   + nb * 4 + nb * 2 * 128 * 4)
     # per real sample: 4 weights (6 ops), lerp (24), black test, distance
     # and square sum (9), sqrt, two adds: ~42 f32 operations
-    slab_ops = samples * 42
+    slab_bound, slab_by = _bound(slab_bytes, samples * 42)
     slab_row = dict(
         name="slab_block_partials", route="cuda",
         source="piccolo_tpu_torch/kernels/csrc/slab_sampling.cu",
@@ -181,11 +226,7 @@ def phase_kernels(room, dev):
         ms=cuda_ms(lambda: slab.slab_block_partials(table, f, w, plan.window)),
         plain_ms=cuda_ms(lambda: slab.slab_block_partials_plain(
             table, f, w, plan.window)),
-        bound_ms=1e3 * max(slab_bytes / HBM_BYTES_PER_S,
-                           slab_ops / F32_OPS_PER_S),
-        bound_by=("bytes" if slab_bytes / HBM_BYTES_PER_S
-                  >= slab_ops / F32_OPS_PER_S else "operations"),
-        library_ms=None,
+        bound_ms=slab_bound, bound_by=slab_by, library_ms=None,
     )
     log(f"slab kernel vs plain (one group, nb={nb}, block={block}, "
         f"{samples} real samples, {pads} pad slots, {pad_blocks} blocks all "
@@ -210,7 +251,7 @@ def phase_kernels(room, dev):
                         dtype=torch.int32).to(dev)
     mask = (torch.rand((320, 8192), generator=g) < 0.8).to(torch.float32).to(dev)
     flat = (torch.arange(320, device=dev)[:, None] * 512 + ids).reshape(-1)
-    bh_bytes = ids.numel() * 8 + 320 * 512 * 4
+    bh_bound, bh_by = _bound(ids.numel() * 8 + 320 * 512 * 4, ids.numel() * 2)
     bh_row = dict(
         name="block_histogram", route="cuda",
         source="piccolo_tpu_torch/kernels/csrc/block_histogram.cu",
@@ -218,9 +259,7 @@ def phase_kernels(room, dev):
         max_abs_err=bh_err,
         ms=cuda_ms(lambda: block_histogram(ids, mask)),
         plain_ms=cuda_ms(lambda: block_histogram_plain(ids, mask)),
-        bound_ms=1e3 * max(bh_bytes / HBM_BYTES_PER_S,
-                           ids.numel() * 2 / F32_OPS_PER_S),
-        bound_by="bytes",
+        bound_ms=bh_bound, bound_by=bh_by,
         library_ms=cuda_ms(lambda: torch.bincount(
             flat, weights=mask.reshape(-1), minlength=320 * 512)),
     )
@@ -229,6 +268,162 @@ def phase_kernels(room, dev):
             f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}, library "
             f"{row['library_ms']})")
     return [slab_row, bh_row]
+
+
+def phase_cli_room(dev, tmp):
+    """The CLI's tree, and its room as the CLI loads it: cloud, candidate
+    grids and the first query's init image and colours under
+    configs/stanford.ini (sharpen_color on)."""
+    from piccolo_tpu_torch.config import apply_overrides, cfg_get, parse_ini
+    from piccolo_tpu_torch.data import read_stanford
+    from piccolo_tpu_torch.harness import localize as hl
+    from piccolo_tpu_torch.harness.imaging import imread_rgb
+    from piccolo_tpu_torch.kernels.slab_sampling import plan_bytes_estimate
+    from piccolo_tpu_torch.testing import write_synth_stanford
+
+    tree = os.path.join(tmp, "data")
+    t0 = time.time()
+    write_synth_stanford(tree, rooms=1, queries=CLI_QUERIES, points=60000,
+                         height=512, seed=7, oracle="raycast")
+    t_write = time.time() - t0
+    cfg = apply_overrides(parse_ini(CONFIG), f"data_root={tree}")
+    init = hl.get_init_dict(cfg)
+    hl._seed_everything()
+    pcd = os.path.join(tree, "stanford", "pcd_not_aligned", "area_1",
+                       "office_1.txt")
+    xyz, rgb = (a.astype(np.float32)
+                for a in read_stanford(pcd, cfg_get(cfg, "sample_rate", 1)))
+    xyz_d, rgb_d, mask_d = hl._pad_cloud(xyz, rgb, dev)
+    grids = hl._FusedGrids(xyz, init, dev)
+    pano = sorted(glob.glob(os.path.join(tree, "stanford", "pano", "area_1",
+                                         "*.png")))[0]
+    room = dict(rgb=rgb_d, rgb_np=rgb, mask=mask_d, device=dev)
+    img_init, _, rgb_used, _ = hl.prepare_stanford_images(
+        cfg, imread_rgb(pano), room)
+    n_pairs = grids.n_trans * int(grids.rot.shape[0])
+    n_points = int(mask_d.shape[0])
+    est = {k: plan_bytes_estimate(n_pairs, n_points, compact=k != "f32",
+                                  quant=k == "q8")
+           for k in ("f32", "compact", "q8")}
+    log(f"cli tree: 1 room, {CLI_QUERIES} queries, 60000 points, 1024x512 "
+        f"panos, written in {t_write:.2f} s; {n_pairs} pairs = "
+        f"{-(-n_pairs // 128)} groups of 128; init image "
+        f"{img_init.shape[1]}x{img_init.shape[0]}; plan estimates {est} B")
+    return dict(tree=tree, xyz_d=xyz_d, rgb_d=rgb_d, mask_d=mask_d,
+                grids=grids, img_init=img_init, rgb_used=rgb_used,
+                n_pairs=n_pairs, groups=-(-n_pairs // 128), est=est)
+
+
+def phase_layout_kernels(cli, dev):
+    """The compact and q8 slab kernels at the CLI's shapes, and the masked
+    histogram, against their plain versions, timed.  The plans are built
+    as the CLI's forced runs B and C build them (point ids, for the
+    sharpen_color re-bake) from the CLI's room and grids, and every group
+    is scored with the first query's init image and re-baked colours."""
+    from piccolo_tpu_torch.kernels import slab_sampling as slab
+    from piccolo_tpu_torch.kernels.histogram import (
+        masked_histogram_counts,
+        masked_histogram_counts_plain,
+    )
+
+    grids = cli["grids"]
+    img = torch.as_tensor(cli["img_init"], device=dev)
+    H, W = img.shape[0], img.shape[1]
+    packed = slab.pack_rgb24(cli["rgb_used"])
+    rows = []
+    # bytes a sample must bring (real / pad slot) and ~f32 operations per
+    # real sample: the f32 kernel's 42 plus the decode
+    spec = {
+        "compact": (slab.slab_block_partials_compact,
+                    slab.slab_block_partials_compact_plain, 16, 54, 689),
+        "q8": (slab.slab_block_partials_q8, slab.slab_block_partials_q8_plain,
+               8, 59, 711),
+    }
+    for layout, (kernel, plain, per_real, ops_per, line) in spec.items():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        plan = slab.build_grid_plan(
+            cli["xyz_d"], cli["rgb_d"], cli["mask_d"],
+            grids.trans[:grids.n_trans], grids.rot, H, W, compact=True,
+            tp_is_pid=True, quant=layout == "q8", device=dev)
+        torch.cuda.synchronize()
+        log(f"{layout} GridPlan at the CLI's shapes: {plan.nbytes} B, "
+            f"{len(plan.fields)} groups x {tuple(plan.fields[0].shape)}, "
+            f"window {plan.window}, block {plan.block}, built in "
+            f"{time.time() - t0:.3f} s")
+        table = slab.slab_table(img, window=plan.window)
+        err = 0.0
+        for g, (f, w, tp) in enumerate(zip(plan.fields, plan.windows,
+                                           plan.tps)):
+            tps = packed[tp.to(torch.int64)]  # the per-query re-bake
+            got = kernel(table, f, tps, w, plan.window)
+            want = plain(table, f, tps, w, plan.window)
+            torch.cuda.synchronize()
+            if not torch.equal(got[:, 1], want[:, 1]):
+                raise AssertionError(f"{layout} slab kernel counts differ "
+                                     f"from the plain version in group {g}")
+            torch.testing.assert_close(got[:, 0], want[:, 0], rtol=1e-5,
+                                       atol=1e-6)
+            err = max(err, float((got[:, 0] - want[:, 0]).abs().max()))
+        f, w = plan.fields[0], plan.windows[0]
+        tps = packed[plan.tps[0].to(torch.int64)]
+        nb, _, block = f.shape
+        if layout == "q8":
+            real = ((f[:, 0] >> 23) & 0x1FF) < plan.window
+        else:
+            real = f[:, 0] >= 0
+        samples = int(real.sum())
+        pads = nb * block - samples
+        n_win = int(torch.unique(w).numel())
+        # real: every field and the target, pad: its first field; each
+        # distinct table window once, the windows and the partials
+        nbytes = (samples * per_real + pads * 4 + n_win * plan.window * 48
+                  + nb * 4 + nb * 2 * 128 * 4)
+        bound_ms, bound_by = _bound(nbytes, samples * ops_per)
+        rows.append(dict(
+            name=kernel.__name__, route="cuda",
+            source="piccolo_tpu_torch/kernels/csrc/slab_sampling.cu",
+            replaces=f"piccolo_tpu/kernels/slab_sampling.py:{line}",
+            max_abs_err=err,
+            ms=cuda_ms(lambda: kernel(table, f, tps, w, plan.window)),
+            plain_ms=cuda_ms(lambda: plain(table, f, tps, w, plan.window)),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+        log(f"{layout} slab kernel vs plain on all {len(plan.fields)} groups: "
+            f"counts exact, max |sum err| {err:.3g}; group 0 timed (nb={nb}, "
+            f"block={block}, {samples} real samples, {pads} pad slots, "
+            f"{n_win} distinct windows, {nbytes} B needed)")
+        del plan, table, f, w, tps
+
+    g = torch.Generator(device="cpu").manual_seed(1)
+    for n in (524288, 3001):
+        ids = torch.randint(-3, 530, (n,), generator=g,
+                            dtype=torch.int32).to(dev)
+        mask = (torch.rand((n,), generator=g) < 0.7).to(torch.float32).to(dev)
+        got = masked_histogram_counts(ids, mask)
+        want = masked_histogram_counts_plain(ids, mask)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"masked histogram differs at N={n}")
+        log(f"masked histogram vs plain at N={n}: bit-exact")
+    n = 524288  # a 1024x512 image
+    ids = torch.randint(0, 512, (n,), generator=g, dtype=torch.int32).to(dev)
+    mask = (torch.rand((n,), generator=g) < 0.7).to(torch.float32).to(dev)
+    ids64 = ids.to(torch.int64)
+    bound_ms, bound_by = _bound(n * 8 + 512 * 4, n * 2)
+    rows.append(dict(
+        name="masked_histogram_counts", route="cuda",
+        source="piccolo_tpu_torch/kernels/csrc/masked_histogram.cu",
+        replaces="piccolo_tpu/kernels/histogram_mxu.py:39", max_abs_err=0.0,
+        ms=cuda_ms(lambda: masked_histogram_counts(ids, mask)),
+        plain_ms=cuda_ms(lambda: masked_histogram_counts_plain(ids, mask)),
+        bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=cuda_ms(lambda: torch.bincount(ids64, weights=mask,
+                                                  minlength=512))))
+    for row in rows:
+        log(f"{row['name']}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f} ms, "
+            f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}, library "
+            f"{row['library_ms']})")
+    return rows
 
 
 def phase_small_reference(dev):
@@ -400,20 +595,193 @@ def phase_profile(room, dev, median_s):
         log(f"profile kernel {us / 1e3:8.2f} ms  {name[:100]}")
 
 
+def _csv_rows(log_dir):
+    with open(os.path.join(log_dir, "stanford_results.csv"), newline="") as f:
+        return list(csv.reader(f))[1:]
+
+
+def phase_cli(cli, dev):
+    """Eight runs of the CLI on the ray-cast Stanford tree; returns, per
+    kernel, (launches, queries, run) of the run that drives it."""
+    from piccolo_tpu_torch.kernels import slab_sampling as slab
+    from piccolo_tpu_torch.kernels.block_histogram import block_histogram
+    from piccolo_tpu_torch.kernels.histogram import masked_histogram_counts
+    from piccolo_tpu_torch.main import main as cli_main
+
+    n_q, tree, groups, est = CLI_QUERIES, cli["tree"], cli["groups"], cli["est"]
+    R = int(cli["grids"].rot.shape[0])
+    kernels = {fn.__name__: fn for fn in (
+        slab.slab_block_partials, slab.slab_block_partials_compact,
+        slab.slab_block_partials_q8, block_histogram, masked_histogram_counts)}
+    builds = []
+    real_build = slab.build_grid_plan
+
+    def counting_build(*a, **kw):
+        builds.append((kw.get("compact"), kw.get("quant"), kw.get("nb")))
+        return real_build(*a, **kw)
+
+    # F: auto between the q8 and the compact estimates admits a full q8
+    # plan; G: auto under the q8 estimate admits a partial q8 plan of the
+    # leading groups that fit, built on a background thread
+    cap_f = (est["q8"] + est["compact"]) // 2
+    cap_g = int(est["q8"] * 0.6)
+    groups_g = -(-(int(groups * cap_g / est["q8"]) * 128 // R * R) // 128)
+    plans = os.path.join(os.path.dirname(tree), "plans")
+    forced = "slab_init=True,slab_background_build=False"
+    runs = [
+        ("A", None, ""),
+        ("B", "slab_block_partials_compact",
+         f"{forced},slab_compact=True,slab_plan_cache=True,"
+         f"slab_plan_cache_dir={plans}"),
+        ("B'", "slab_block_partials_compact",
+         f"{forced},slab_compact=True,slab_plan_cache=True,"
+         f"slab_plan_cache_dir={plans}"),
+        ("C", "slab_block_partials_q8",
+         f"{forced},slab_quant=True,slab_plan_cache=False"),
+        ("D", "slab_block_partials",
+         f"sharpen_color=False,{forced},slab_plan_cache=False"),
+        ("E", "", "sharpen_color=False,slab_init=False,hist_planes=False"),
+        ("F", "slab_block_partials_q8",
+         f"sharpen_color=False,slab_bytes_cap={cap_f}"),
+        ("G", "slab_block_partials_q8",
+         f"sharpen_color=False,slab_bytes_cap={cap_g},"
+         "slab_background_build=True"),
+    ]
+    # runs whose winners must equal another run's: the plans and kernels
+    # move no winner against the gather engine and the live splat
+    same_as = {"B": "A", "B'": "B", "C": "A", "E": "D", "F": "E", "G": "E"}
+    out, winners = {}, {}
+    slab.build_grid_plan = counting_build
+    try:
+        for run, slab_kernel, extra in runs:
+            for fn in kernels.values():
+                fn.launches = 0
+            builds.clear()
+            log_dir = os.path.join(os.path.dirname(tree),
+                                   "log_" + run.replace("'", "p"))
+            override = f"data_root={tree}" + (f",{extra}" if extra else "")
+            buf = io.StringIO()
+            t0 = time.time()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    acc = cli_main(["--config", CONFIG, "--log", log_dir,
+                                    "--no-tensorboard", "--device", dev.type,
+                                    "--override", override])
+                    for t in threading.enumerate():  # plan saves, builds
+                        if t.name.startswith(("piccolo-plan", "piccolo-hist")):
+                            t.join()
+            except Exception:
+                print(buf.getvalue()[-6000:], flush=True)
+                raise
+            wall = time.time() - t0
+            launches = {k: fn.launches for k, fn in kernels.items()}
+            routes = [ln.split(":", 1)[1].strip()
+                      for ln in buf.getvalue().splitlines()
+                      if ln.startswith("route :")]
+            rows = _csv_rows(log_dir)
+            t_err = float(np.median([float(r_[7]) for r_ in rows]))
+            q_s = float(np.median([float(r_[9]) for r_ in rows]))
+            winners[run] = np.array([[float(v) for v in r_[5].split()]
+                                     for r_ in rows])
+            log(f"cli run {run}: routes {routes}; accuracy {acc}; "
+                f"median t_err {t_err:.4f} m; median time (s) {q_s:.4f}; "
+                f"wall {wall:.2f} s; plan builds (compact, quant, nb) "
+                f"{builds}; launches {launches}; per query camera, t_err (m), "
+                f"r_err (deg) "
+                f"{[(r_[1][7:11], round(float(r_[7]), 4), round(float(r_[8]), 3)) for r_ in rows]}")
+            if len(rows) != n_q or len(routes) != n_q:
+                raise AssertionError(f"run {run}: {len(rows)} rows, "
+                                     f"{len(routes)} routes")
+            if not (t_err < 0.05 and acc >= 0.75):
+                raise AssertionError(f"run {run}: median t_err {t_err} m, "
+                                     f"accuracy {acc}")
+            if launches["block_histogram"] != n_q:
+                raise AssertionError(f"run {run}: block_histogram launched "
+                                     f"{launches['block_histogram']} times "
+                                     f"for {n_q} queries")
+            want_groups = groups * n_q
+            if run == "G":
+                # the room's first query runs the gather engine while the
+                # plan builds; the queries after it use the partial plan
+                on_plan = sum("q8 slab plan (partial) + gather engine tail"
+                              in r_ for r_ in routes)
+                if not (on_plan >= 1 and "partial" in routes[-1]):
+                    raise AssertionError(f"run G never used its partial "
+                                         f"plan: {routes}")
+                want_groups = groups_g * on_plan
+            if run == "F" and not all(r_.startswith("stage 1 q8 slab plan,")
+                                      for r_ in routes):
+                raise AssertionError(f"run F did not admit a q8 plan for "
+                                     f"every query: {routes}")
+            if slab_kernel is not None:
+                want = {k: (want_groups if k == slab_kernel else 0)
+                        for k in kernels if k.startswith("slab_")}
+                got = {k: v for k, v in launches.items()
+                       if k.startswith("slab_")}
+                if got != want:
+                    raise AssertionError(f"run {run}: slab launches {got}, "
+                                         f"want {want}")
+            if run in ("B", "C", "D", "F") and len(builds) != 1:
+                raise AssertionError(f"run {run} built {len(builds)} plans")
+            if run == "B'" and builds:
+                raise AssertionError("run B' rebuilt the plan instead of "
+                                     "loading it from the cache")
+            if run == "D" and not all("HistPlan" in r_ for r_ in routes):
+                raise AssertionError(f"run D did not use a HistPlan: {routes}")
+            if run in same_as:
+                ref = same_as[run]
+                dt = float(np.abs(winners[run] - winners[ref]).max())
+                log(f"cli run {run} vs {ref}: winners within {dt:.3g} m")
+                if not dt < 1e-3:
+                    raise AssertionError(f"run {run}'s winners differ from "
+                                         f"run {ref}'s by {dt} m")
+            out[run] = launches
+    finally:
+        slab.build_grid_plan = real_build
+    return {
+        "slab_block_partials": (out["D"]["slab_block_partials"], n_q, "D"),
+        "slab_block_partials_compact":
+            (out["B"]["slab_block_partials_compact"], n_q, "B"),
+        "slab_block_partials_q8": (out["C"]["slab_block_partials_q8"], n_q,
+                                   "C"),
+        "block_histogram": (out["A"]["block_histogram"], n_q, "A"),
+    }
+
+
+def timed(name, fn, *args):
+    t0 = time.time()
+    out = fn(*args)
+    log(f"phase {name}: {time.time() - t0:.2f} s")
+    return out
+
+
 def main():
-    phase_device()
+    timed("device", phase_device)
     dev = torch.device("cuda", 0)
-    phase_build()
-    room = phase_room(dev)
-    rows = phase_kernels(room, dev)
-    phase_small_reference(dev)
-    launches, median_s = phase_main_path(room, dev)
-    phase_profile(room, dev, median_s)
-    # launches: over the 5 timed queries of the main path's run
+    timed("build", phase_build)
+    room = timed("room", phase_room, dev)
+    rows = timed("kernels", phase_kernels, room, dev)
+    timed("small reference", phase_small_reference, dev)
+    _, median_s = timed("main path", phase_main_path, room, dev)
+    timed("profile", phase_profile, room, dev, median_s)
+    del room
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="piccolo_cli_")
+    try:
+        cli = timed("cli room", phase_cli_room, dev, tmp)
+        rows += timed("layout kernels", phase_layout_kernels, cli, dev)
+        torch.cuda.empty_cache()
+        launched = timed("cli", phase_cli, cli, dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     for row in rows:
-        row["launches"] = launches[row["name"]]
-        row["launches_per_query"] = launches[row["name"]] / 5
-    keys = ("name", "route", "source", "replaces", "launches",
+        # launches: the CLI run that drives the kernel; the masked
+        # histogram runs on no query path
+        n, n_q, run = launched.get(row["name"], (0, None, None))
+        row["launches"] = n
+        row["launches_per_query"] = None if n_q is None else n / n_q
+        row["path"] = "no query path" if run is None else f"cli run {run}"
+    keys = ("name", "route", "source", "replaces", "path", "launches",
             "launches_per_query", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}))

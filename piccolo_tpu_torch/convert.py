@@ -24,17 +24,24 @@ __all__ = ["grid_plan_from_numpy", "hist_plan_from_numpy", "cloud_from_numpy"]
 def grid_plan_from_numpy(fields: Sequence[np.ndarray],
                          windows: Sequence[np.ndarray], n_pairs: int,
                          height: int, width: int, wrap: bool, window: int,
-                         block: int, device="cuda") -> GridPlan:
-    """An f32 slab plan from per-group (NB, 8, BLOCK) fields and (NB,)
-    windows."""
+                         block: int, tps: Sequence[np.ndarray] = (),
+                         compact: bool = False, tp_is_pid: bool = False,
+                         quant: bool = False, device="cuda") -> GridPlan:
+    """A slab plan from per-group fields ((NB, 8, BLOCK) f32, (NB, 3, BLOCK)
+    f32 compact or (NB, 1, BLOCK) int32 q8), (NB,) windows and, for
+    compact and q8 plans, (NB, 1, BLOCK) f32 ``tps``."""
     dev = resolve_device(device)
+    fdtype = np.int32 if quant else np.float32
     return GridPlan(
-        fields=tuple(torch.tensor(np.asarray(f, np.float32), device=dev)
+        fields=tuple(torch.tensor(np.asarray(f, fdtype), device=dev)
                      for f in fields),
         windows=tuple(torch.tensor(np.asarray(w, np.int32), device=dev)
                       for w in windows),
         n_pairs=int(n_pairs), height=int(height), width=int(width),
         wrap=bool(wrap), window=int(window), block=int(block),
+        compact=bool(compact), tp_is_pid=bool(tp_is_pid), quant=bool(quant),
+        tps=tuple(torch.tensor(np.asarray(t, np.float32), device=dev)
+                  for t in tps),
     )
 
 

@@ -30,7 +30,7 @@ from ..ops.sampling import pack_bilinear_blocks
 __all__ = [
     "SUPPORTED_CRITERIA", "check_criterion", "score_pose_grid",
     "trim_by_loss", "hist_scores_core", "trim_by_hist", "HistPlan",
-    "build_hist_plan", "hist_scores_from_planes",
+    "build_hist_plan", "hist_plan_bytes", "hist_scores_from_planes",
 ]
 
 _HIST_BINS = (8, 8, 8)  # reference utils.py:531
@@ -214,6 +214,11 @@ class HistPlan:
     @property
     def nbytes(self) -> int:
         return self.planes.numel() * self.planes.element_size()
+
+
+def hist_plan_bytes(n_pairs: int, height: int, width: int) -> int:
+    """Exact footprint of a HistPlan (an int16 bin per pixel per pair)."""
+    return n_pairs * height * width * 2
 
 
 def build_hist_plan(xyz, rgb, trans, rot, height: int, width: int,

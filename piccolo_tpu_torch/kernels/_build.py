@@ -9,6 +9,7 @@ There is no fallback: a missing nvcc or a failed build raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -17,13 +18,13 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Iterator
 
-__all__ = ["load_library", "build_all", "KERNEL_SOURCES", "stream_ptr"]
+__all__ = ["load_library", "build_all", "KERNEL_SOURCES", "on_device"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNEL_SOURCES = ("block_histogram", "slab_sampling")
+KERNEL_SOURCES = ("block_histogram", "masked_histogram", "slab_sampling")
 
 # -fmad=false: no multiply-add contraction, so each sample's arithmetic
 # rounds exactly like the plain PyTorch version's separate mul and add
@@ -93,8 +94,13 @@ def load_library(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(target))
 
 
-def stream_ptr(device) -> ctypes.c_void_p:
-    """PyTorch's current CUDA stream on ``device``, for a launcher."""
+@contextlib.contextmanager
+def on_device(device) -> Iterator[ctypes.c_void_p]:
+    """Make ``device`` the current CUDA device for a launch and yield
+    PyTorch's current stream there.  A launcher launches on the current
+    device, which need not be the device of its tensors (``cuda:1`` while
+    ``cuda:0`` is current, or a thread that never chose one)."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        yield ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

@@ -14,7 +14,7 @@ import functools
 
 import torch
 
-from ._build import load_library, stream_ptr
+from ._build import load_library, on_device
 
 __all__ = ["block_histogram", "block_histogram_plain"]
 
@@ -66,8 +66,10 @@ def block_histogram(ids: torch.Tensor, mask: torch.Tensor,
     out = torch.empty((B, num_bins), dtype=torch.float32, device=ids.device)
     if B == 0:
         return out
-    err = _launcher()(ids.data_ptr(), mask.data_ptr(), out.data_ptr(), B, N,
-                      num_bins, stream_ptr(ids.device))
+    launch = _launcher()
+    with on_device(ids.device) as stream:
+        err = launch(ids.data_ptr(), mask.data_ptr(), out.data_ptr(), B, N,
+                     num_bins, stream)
     if err != 0:
         raise RuntimeError(f"block_histogram launch failed: CUDA error {err}")
     block_histogram.launches += 1

@@ -1,19 +1,26 @@
 """Stage-1 candidate-grid scoring from room-static sorted sample streams.
 
-Port of piccolo_tpu/kernels/slab_sampling.py, f32 plan layout.  Stage-1
-sample locations depend only on the room (cloud + candidate grid), so the
-plan computes every (pair, point) -> (table row, bilinear fractions) once,
-sorts each 128-pair group's samples by table row and pads them into blocks
-that each lie inside one aligned table window.  Per query, the CUDA kernel
-``csrc/slab_sampling.cu`` scores every block against its window of the
-packed sampling table; :func:`slab_block_partials_plain` is the same
-function in plain PyTorch.
+Port of piccolo_tpu/kernels/slab_sampling.py in its three plan layouts.
+Stage-1 sample locations depend only on the room (cloud + candidate grid),
+so the plan computes every (pair, point) -> (table row, bilinear fractions)
+once, sorts each 128-pair group's samples by table row and pads them into
+blocks that each lie inside one aligned table window.  Per query, a CUDA
+kernel of ``csrc/slab_sampling.cu`` scores every block against its window
+of the packed sampling table; a ``*_plain`` function beside each wrapper is
+the same function in plain PyTorch.
 
-The plan keeps the JAX package's stream layout, (NB, 8, BLOCK) f32 fields
-[lidx, wx1, wy1, r, g, b, cid, pid] per group plus (NB,) int32 windows, so
-plans compare field for field and a JAX-built plan runs here unchanged
-(``convert.grid_plan_from_numpy``).  The compact and q8 layouts belong to a
-later slice of the port.
+The plans keep the JAX package's stream layouts, so plans compare field for
+field and a JAX-built plan runs here unchanged
+(``convert.grid_plan_from_numpy``):
+
+* f32: (NB, 8, BLOCK) f32 fields [lidx, wx1, wy1, r, g, b, cid, pid];
+* compact: (NB, 3, BLOCK) f32 [lidx*128 + cid, wx1, wy1] plus a split
+  (NB, 1, BLOCK) f32 ``tps`` stream holding the target as a 24-bit integer
+  r<<16|g<<8|b, or the point id for refresh-capable plans (``tp_is_pid``);
+* q8: (NB, 1, BLOCK) int32 lidx(9)|cid(7)|wx(8)|wy(8), pad lidx = 511,
+  plus the same ``tps`` stream;
+
+each with (NB,) int32 windows.
 """
 
 from __future__ import annotations
@@ -23,13 +30,14 @@ import dataclasses
 import functools
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..device import as_tensor, resolve_device
 from ..loss import Pose, transform_cloud
 from ..ops.projection import safe_norm, spherical_project
 from ..ops.sampling import pack_bilinear_blocks, packed_rows_and_weights
-from ._build import load_library, stream_ptr
+from ._build import load_library, on_device
 
 __all__ = [
     "GridPlan",
@@ -39,8 +47,16 @@ __all__ = [
     "slab_table",
     "slab_block_partials",
     "slab_block_partials_plain",
+    "slab_block_partials_compact",
+    "slab_block_partials_compact_plain",
+    "slab_block_partials_q8",
+    "slab_block_partials_q8_plain",
     "slab_group_partials",
     "slab_pair_scores",
+    "plan_required_blocks",
+    "nb_bucket",
+    "plan_bytes_estimate",
+    "slab_worthwhile",
     "default_plan_bytes_cap",
     "plan_exact_bytes",
     "resolve_plan_geometry",
@@ -54,11 +70,13 @@ WINDOW = 512  # default table rows per aligned window (see the resolver)
 BLOCK = 1024  # default samples per plan block
 GROUP = 128  # candidate pairs per group (the kernel's accumulator width)
 
-# field order in the packed (8, BLOCK) sample block
+# field order in the f32 plan's packed (8, BLOCK) sample block
 _F_LIDX, _F_WX1, _F_WY1, _F_TR, _F_TG, _F_TB, _F_CID, _F_PID = range(8)
 
-_UNPORTED = ("compact and q8 slab plans are not ported yet: they come with "
-             "the plan admission ladder in a later slice of the port")
+# q8 pad: lidx = 511 names no row of a window <= 256; as int32 the bit
+# pattern 0xFF800000 (shifted on an int32 tensor, so it wraps like JAX's)
+_Q8_PAD_LIDX = 511
+_Q8_MAX_WINDOW = 256
 
 
 def resolve_plan_geometry(n_points: int, height: int, width: int,
@@ -73,17 +91,24 @@ def resolve_plan_geometry(n_points: int, height: int, width: int,
 
 
 DEFAULT_PLAN_BYTES_CAP = 9 * 10**9
+# the JAX package's plan share of device memory, not yet re-decided for
+# the H100
 _PLAN_MEM_FRACTION = 9.0 / 16.0
 
 
 def default_plan_bytes_cap(device=None) -> int:
-    """9/16 of the card's memory for a plan's streams (the JAX package's
-    fraction, not yet re-decided for the H100); the fixed default off the
-    card."""
-    dev = torch.device(device) if device is not None else None
-    if dev is None or dev.type != "cuda":
-        return DEFAULT_PLAN_BYTES_CAP
-    _, total = torch.cuda.mem_get_info(dev)
+    """Budget for a plan's streams: 9/16 of the card's memory.  ``None``
+    means the current CUDA device when one is present (as JAX takes its
+    default device); off the card, the fixed 9 GB default."""
+    if device is None:
+        if not torch.cuda.is_available():
+            return DEFAULT_PLAN_BYTES_CAP
+        _, total = torch.cuda.mem_get_info()
+    else:
+        dev = torch.device(device)
+        if dev.type != "cuda":
+            return DEFAULT_PLAN_BYTES_CAP
+        _, total = torch.cuda.mem_get_info(dev)
     return int(total * _PLAN_MEM_FRACTION)
 
 
@@ -98,21 +123,54 @@ class PlanOverBudget(RuntimeError):
         self.cap = cap
 
 
-def plan_exact_bytes(n_groups: int, nb: int, block: int = BLOCK) -> int:
-    """Exact footprint of an f32 plan: 32 B a sample slot plus the windows."""
-    return n_groups * (nb * block * 32 + nb * 4)
+def _bytes_per_sample(compact: bool, quant: bool) -> int:
+    return 8 if quant else (16 if compact else 32)
+
+
+def plan_exact_bytes(n_groups: int, nb: int, compact: bool,
+                     block: int = BLOCK, quant: bool = False) -> int:
+    """Exact footprint of a plan once the padded block count is known:
+    32, 16 or 8 B a sample slot (f32, compact, q8) plus the windows."""
+    return n_groups * (nb * block * _bytes_per_sample(compact, quant) + nb * 4)
+
+
+def plan_bytes_estimate(n_pairs: int, n_points: int, compact: bool = False,
+                        quant: bool = False) -> int:
+    """Footprint of a plan before building it, with ~25% block padding."""
+    groups = (n_pairs + GROUP - 1) // GROUP
+    return int(groups * GROUP * n_points * _bytes_per_sample(compact, quant)
+               * 1.25)
+
+
+def slab_worthwhile(n_pairs: int, n_points: int, height: int, width: int,
+                    refresh: bool, compact: bool = False) -> bool:
+    """The JAX package's cost model of gather engine vs plan + kernel (+ the
+    per-query target re-bake that sharpen_color forces).  Its rates were
+    measured on a TPU and are carried over unchanged: they decide the
+    admission ladder here until H100 rates replace them."""
+    table_mb = _table_rows(height, width) * 48 / 1e6
+    gather_rate = float(np.interp(table_mb, [6.0, 25.0, 100.0],
+                                  [2.7e8, 1.1e8, 4.5e7]))
+    groups = (n_pairs + GROUP - 1) // GROUP
+    samples = groups * GROUP * n_points * 1.25
+    gather_cost = n_pairs * n_points / gather_rate
+    refresh_gathers = (1 if compact else 3) if refresh else 0
+    slab_cost = samples / 7.5e8 + refresh_gathers * samples / 2.7e8
+    return slab_cost < 0.7 * gather_cost
 
 
 @dataclasses.dataclass
 class GridPlan:
     """Room-static sorted sample streams for :func:`slab_pair_scores`.
 
-    fields:  per-group (NB, 8, BLOCK) f32 sample blocks; padding slots
-             carry lidx = cid = -1 and contribute nothing.
+    fields:  per-group sample blocks in the layout the flags name (module
+             docstring); padding slots contribute nothing.
     windows: per-group (NB,) int32 aligned table-window index per block.
     n_pairs: leading candidate pairs the plan covers (pairs beyond it are
              the consumer's to mask).
     height/width: the init-image shape the table rows were computed for.
+    tps:     per-group (NB, 1, BLOCK) f32 target/pid streams (compact and
+             q8 plans; empty for f32 plans).
     """
 
     fields: Tuple[torch.Tensor, ...]
@@ -123,11 +181,15 @@ class GridPlan:
     wrap: bool = False
     window: int = WINDOW
     block: int = BLOCK
+    compact: bool = False
+    tp_is_pid: bool = False
+    quant: bool = False
+    tps: Tuple[torch.Tensor, ...] = ()
 
     @property
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size()
-                   for t in self.fields + self.windows)
+                   for t in self.fields + self.windows + tuple(self.tps))
 
 
 def make_pairs(trans_grid: torch.Tensor, rot_grid: torch.Tensor):
@@ -146,7 +208,7 @@ def _rpad(height: int, width: int, window: int = WINDOW) -> int:
     return ((rows + window - 1) // window) * window
 
 
-def _nb_bucket(n: int) -> int:
+def nb_bucket(n: int) -> int:
     """Geometric block-count buckets (the JAX package's shape reuse)."""
     b = 256
     while b < n:
@@ -184,22 +246,39 @@ def pack_rgb24(rgb: torch.Tensor) -> torch.Tensor:
     return q[:, 0] * 65536.0 + q[:, 1] * 256.0 + q[:, 2]
 
 
+def _q8_pad(device) -> torch.Tensor:
+    return torch.tensor(_Q8_PAD_LIDX, dtype=torch.int32, device=device) << 23
+
+
 def _layout_group(row, wx1, wy1, rgb, *, nb: int, n_win: int, window: int,
-                  block: int):
+                  block: int, compact: bool = False, tp_is_pid: bool = False,
+                  quant: bool = False):
     """Sorted, window-padded sample blocks of one group from its projected
     (G, N) rows and fractions: the layout half of the JAX package's
-    ``_plan_group``.  Returns ((nb, 8, block) f32 fields, (nb,) int32
-    windows)."""
+    ``_plan_group``.  Returns (fields, (nb,) int32 windows, tps or None)."""
     G, N = row.shape
     dev = row.device
     cid = torch.arange(G, dtype=torch.float32, device=dev)[:, None].expand(G, N)
     pid = torch.arange(N, dtype=torch.float32, device=dev)[None].expand(G, N)
-    tgt = rgb.T[:, None, :].expand(3, G, N)
+    if compact or quant:
+        tp1 = pid if tp_is_pid else pack_rgb24(rgb)[None].expand(G, N)
+    if quant:
+        # cid|wx|wy packed into one int32 BEFORE the sort, as JAX does it;
+        # torch.round and jnp.round both round half to even
+        cid_i = torch.arange(G, dtype=torch.int32, device=dev)[:, None]
+        pp = ((cid_i.expand(G, N) << 16)
+              | (torch.round(wx1 * 255.0).to(torch.int32) << 8)
+              | torch.round(wy1 * 255.0).to(torch.int32))
+        payloads = (pp, tp1)
+    elif compact:
+        payloads = (wx1, wy1, cid, tp1)
+    else:
+        tgt = rgb.T[:, None, :].expand(3, G, N)
+        payloads = (wx1, wy1, tgt[0], tgt[1], tgt[2], cid, pid)
 
     # stable sort by row, payloads follow the permutation (jax.lax.sort)
     row_s, perm = torch.sort(row.reshape(-1).to(torch.int64), stable=True)
-    vals = [x.reshape(-1)[perm]
-            for x in (wx1, wy1, tgt[0], tgt[1], tgt[2], cid, pid)]
+    vals = [x.reshape(-1)[perm] for x in payloads]
 
     win = row_s // window
     edges = torch.arange(n_win + 1, dtype=torch.int64, device=dev) * window
@@ -208,19 +287,39 @@ def _layout_group(row, wx1, wy1, rgb, *, nb: int, n_win: int, window: int,
     block_off = torch.cumsum(blocks_w, 0) - blocks_w
     i = torch.arange(row_s.shape[0], dtype=torch.int64, device=dev)
     positions = i - starts[win] + block_off[win] * block
-    lidx = (row_s - win * window).to(torch.float32)
-
-    payload = torch.stack([lidx] + vals, dim=-1)  # (M, 8)
-    # pads: lidx = cid = -1 select no table row and no pair
-    empty = torch.tensor([-1, 0, 0, 0, 0, 0, -1, 0], dtype=torch.float32,
-                         device=dev)
-    flat = empty.expand(nb * block, 8).clone()
-    flat.index_put_((positions,), payload)
-    fields = flat.reshape(nb, block, 8).transpose(1, 2).contiguous()
     windows = torch.zeros(nb, dtype=torch.int32, device=dev)
     windows.scatter_reduce_(0, positions // block, win.to(torch.int32), "amax",
                             include_self=True)
-    return fields, windows
+
+    tps = None
+    if compact or quant:
+        tps = torch.zeros(nb * block, dtype=torch.float32, device=dev)
+        tps.index_put_((positions,), vals[-1])
+        tps = tps.reshape(nb, 1, block)
+    if quant:
+        li = (row_s - win * window).to(torch.int32)
+        g = (li << 23) | vals[0]
+        flat = _q8_pad(dev).expand(nb * block).clone()
+        flat.index_put_((positions,), g)
+        return flat.reshape(nb, 1, block), windows, tps
+
+    lidx = (row_s - win * window).to(torch.float32)
+    if compact:
+        # lc = lidx*128 + cid, exact small ints in f32; pad lc = -1 floors
+        # to lidx = -1, which the kernel skips
+        payload = torch.stack([lidx * float(GROUP) + vals[2], vals[0],
+                               vals[1]], dim=-1)
+        empty = [-1, 0, 0]
+    else:
+        payload = torch.stack([lidx] + vals, dim=-1)  # (M, 8)
+        # pads: lidx = cid = -1 select no table row and no pair
+        empty = [-1, 0, 0, 0, 0, 0, -1, 0]
+    nf = len(empty)
+    flat = torch.tensor(empty, dtype=torch.float32, device=dev).expand(
+        nb * block, nf).clone()
+    flat.index_put_((positions,), payload)
+    fields = flat.reshape(nb, block, nf).transpose(1, 2).contiguous()
+    return fields, windows, tps
 
 
 def _padded_pairs(trans_grid, rot_grid):
@@ -233,52 +332,94 @@ def _padded_pairs(trans_grid, rot_grid):
     return pair_t, pair_r, P
 
 
-def build_grid_plan(xyz, rgb, point_mask, trans_grid, rot_grid, height: int,
-                    width: int, compact: bool = False, quant: bool = False,
-                    bytes_cap: Optional[int] = None, wrap: bool = False,
-                    window: Optional[int] = None, block: Optional[int] = None,
-                    device="cuda") -> GridPlan:
-    """Build the room-static sorted sample streams (once per room and
-    init-image size).
-
-    ``trans_grid`` should hold only the real (unpadded) rows.  A sizing
-    pass fixes the bucketed block count; ``bytes_cap`` then raises
-    :class:`PlanOverBudget` before any stream is built.  Groups are built
-    one after another, so peak memory stays about one group above the plan.
-    """
-    if compact or quant:
-        raise NotImplementedError(_UNPORTED)
-    dev = resolve_device(device)
+def _room_inputs(xyz, point_mask, trans_grid, rot_grid, dev):
     xyz = as_tensor(xyz, dev, torch.float32)
-    rgb = as_tensor(rgb, dev, torch.float32)
     pm = None if point_mask is None else as_tensor(point_mask, dev, torch.bool)
     pair_t, pair_r, P = _padded_pairs(as_tensor(trans_grid, dev, torch.float32),
                                       as_tensor(rot_grid, dev, torch.float32))
-    n_groups = pair_t.shape[0] // GROUP
-    window, block = resolve_plan_geometry(xyz.shape[0], height, width,
-                                          window, block)
-    n_win = _rpad(height, width, window) // window
+    return xyz, pm, pair_t, pair_r, P
 
+
+def _group_projector(xyz, pm, pair_t, pair_r, height, width, wrap):
     def project(g):
         sl = slice(g * GROUP, (g + 1) * GROUP)
         return _project_group(xyz, pm, pair_t[sl], pair_r[sl], height, width,
                               wrap)
 
-    nb = _nb_bucket(max(_blocks_needed(project(g)[0], n_win, window, block)
-                        for g in range(n_groups)))
+    return project
+
+
+def plan_required_blocks(xyz, point_mask, trans_grid, rot_grid, height: int,
+                         width: int, wrap: bool = False, window=None,
+                         block=None, device="cuda") -> int:
+    """Raw (pre-bucket) maximum padded block count over the plan's groups;
+    the harness rounds it tighter than :func:`nb_bucket` when a bucketed
+    compact plan misses its budget."""
+    dev = resolve_device(device)
+    xyz, pm, pair_t, pair_r, _ = _room_inputs(xyz, point_mask, trans_grid,
+                                              rot_grid, dev)
+    window, block = resolve_plan_geometry(xyz.shape[0], height, width,
+                                          window, block)
+    n_win = _rpad(height, width, window) // window
+    project = _group_projector(xyz, pm, pair_t, pair_r, height, width, wrap)
+    return max(_blocks_needed(project(g)[0], n_win, window, block)
+               for g in range(pair_t.shape[0] // GROUP))
+
+
+def build_grid_plan(xyz, rgb, point_mask, trans_grid, rot_grid, height: int,
+                    width: int, compact: bool = False, tp_is_pid: bool = False,
+                    bytes_cap: Optional[int] = None, nb: Optional[int] = None,
+                    wrap: bool = False, window: Optional[int] = None,
+                    block: Optional[int] = None, quant: bool = False,
+                    device="cuda") -> GridPlan:
+    """Build the room-static sorted sample streams (once per room and
+    init-image size), in the f32 layout, or compact (``compact``) or q8
+    (``compact`` and ``quant``) with targets or, under ``tp_is_pid``, point
+    ids in the split ``tps`` stream.
+
+    ``trans_grid`` should hold only the real (unpadded) rows.  A sizing
+    pass fixes the bucketed block count unless ``nb`` forces it;
+    ``bytes_cap`` then raises :class:`PlanOverBudget` before any stream is
+    built.  Groups are built one after another, so peak memory stays about
+    one group above the plan.
+    """
+    if quant and not compact:
+        raise ValueError("quant=True is a sub-mode of compact plans "
+                         "(pass compact=True)")
+    dev = resolve_device(device)
+    xyz, pm, pair_t, pair_r, P = _room_inputs(xyz, point_mask, trans_grid,
+                                              rot_grid, dev)
+    rgb = as_tensor(rgb, dev, torch.float32)
+    n_groups = pair_t.shape[0] // GROUP
+    window, block = resolve_plan_geometry(xyz.shape[0], height, width,
+                                          window, block)
+    if quant and window > _Q8_MAX_WINDOW:
+        raise ValueError(
+            "q8 plans need window <= 256 (the 9-bit lidx field's sentinel "
+            f"511 must never name a real row), got {window}")
+    n_win = _rpad(height, width, window) // window
+    project = _group_projector(xyz, pm, pair_t, pair_r, height, width, wrap)
+
+    if nb is None:
+        nb = nb_bucket(max(_blocks_needed(project(g)[0], n_win, window, block)
+                            for g in range(n_groups)))
     if bytes_cap is not None:
-        exact = plan_exact_bytes(n_groups, nb, block)
+        exact = plan_exact_bytes(n_groups, nb, compact, block, quant=quant)
         if exact > bytes_cap:
             raise PlanOverBudget(exact, bytes_cap)
-    fields, windows = [], []
+    fields, windows, tps = [], [], []
     for g in range(n_groups):
-        f, w = _layout_group(*project(g), rgb, nb=nb, n_win=n_win,
-                             window=window, block=block)
+        f, w, t = _layout_group(*project(g), rgb, nb=nb, n_win=n_win,
+                                window=window, block=block, compact=compact,
+                                tp_is_pid=tp_is_pid, quant=quant)
         fields.append(f)
         windows.append(w)
+        if t is not None:
+            tps.append(t)
     return GridPlan(fields=tuple(fields), windows=tuple(windows), n_pairs=P,
                     height=height, width=width, wrap=wrap, window=window,
-                    block=block)
+                    block=block, compact=compact, tp_is_pid=tp_is_pid,
+                    quant=quant, tps=tuple(tps))
 
 
 def slab_table(img: torch.Tensor, wrap: bool = False,
@@ -293,39 +434,95 @@ def slab_table(img: torch.Tensor, wrap: bool = False,
     return blocks.contiguous()
 
 
-def slab_block_partials_plain(table: torch.Tensor, fields: torch.Tensor,
-                              windows: torch.Tensor,
-                              window: int) -> torch.Tensor:
-    """(NB, 2, 128) per-block loss sums and valid counts per pair id."""
-    nb, _, block = fields.shape
-    li = fields[:, _F_LIDX].to(torch.int64)
-    cid = fields[:, _F_CID].to(torch.int64)
-    ok = (li >= 0) & (cid >= 0)
-    rows = windows.to(torch.int64)[:, None] * window + li.clamp_min(0)
+# ---- plain versions: decode a layout, then one shared scorer -------------
+
+
+def _partials_plain(table, windows, window, li, x1, y1, tgt, cid, ok):
+    """(NB, 2, 128) per-block loss sums and valid counts per pair id from
+    decoded (NB, block) samples; ``tgt`` is (NB, block, 3)."""
+    nb = li.shape[0]
+    rows = windows.to(torch.int64)[:, None] * window + torch.where(
+        ok, li, torch.zeros_like(li))
     v = table[rows]  # (NB, block, 12)
-    x1 = fields[:, _F_WX1, :, None]
-    y1 = fields[:, _F_WY1, :, None]
+    x1 = x1[..., None]
+    y1 = y1[..., None]
     x0 = 1.0 - x1
     y0 = 1.0 - y1
     # same tap/term order as ops.sampling.bilinear_sample_packed
     s = (v[..., 0:3] * (x0 * y0) + v[..., 3:6] * (x1 * y0)
          + v[..., 6:9] * (x0 * y1) + v[..., 9:12] * (x1 * y1))
     valid = ((s == 0.0).sum(-1) != 3) & ok
-    per = safe_norm(s - fields[:, _F_TR:_F_TB + 1].transpose(1, 2))
-    out = torch.zeros((nb, 2, GROUP), dtype=torch.float32,
-                      device=fields.device)
-    c = cid.clamp_min(0)
+    per = safe_norm(s - tgt)
+    out = torch.zeros((nb, 2, GROUP), dtype=torch.float32, device=li.device)
+    c = torch.where(ok, cid, torch.zeros_like(cid))
     out[:, 0].scatter_add_(1, c, per * valid)
     out[:, 1].scatter_add_(1, c, valid.to(torch.float32))
     return out
 
 
+def _unpack_targets(tp: torch.Tensor) -> torch.Tensor:
+    """(NB, block) 24-bit packed targets -> (NB, block, 3) rgb in [0, 1]:
+    exact power-of-two splits, then an IEEE division by 255."""
+    tr = torch.floor(tp * (1.0 / 65536.0))
+    rem = tp - tr * 65536.0
+    tg = torch.floor(rem * (1.0 / 256.0))
+    tb = rem - tg * 256.0
+    return torch.stack([tr, tg, tb], dim=-1) / 255.0
+
+
+def slab_block_partials_plain(table: torch.Tensor, fields: torch.Tensor,
+                              windows: torch.Tensor,
+                              window: int) -> torch.Tensor:
+    """(NB, 2, 128) per-block loss sums and valid counts per pair id of an
+    f32 plan group."""
+    li = fields[:, _F_LIDX].to(torch.int64)
+    cid = fields[:, _F_CID].to(torch.int64)
+    return _partials_plain(table, windows, window, li, fields[:, _F_WX1],
+                           fields[:, _F_WY1],
+                           fields[:, _F_TR:_F_TB + 1].transpose(1, 2), cid,
+                           (li >= 0) & (cid >= 0))
+
+
+def slab_block_partials_compact_plain(table: torch.Tensor,
+                                      fields: torch.Tensor, tps: torch.Tensor,
+                                      windows: torch.Tensor,
+                                      window: int) -> torch.Tensor:
+    """:func:`slab_block_partials_plain` of a compact plan group: decode
+    lc = lidx*128 + cid by power-of-two scalings (exact); pads have
+    lidx < 0."""
+    lc = fields[:, 0]
+    lif = torch.floor(lc * (1.0 / GROUP))
+    cid = (lc - lif * float(GROUP)).to(torch.int64)
+    li = lif.to(torch.int64)
+    return _partials_plain(table, windows, window, li, fields[:, 1],
+                           fields[:, 2], _unpack_targets(tps[:, 0]), cid,
+                           li >= 0)
+
+
+def slab_block_partials_q8_plain(table: torch.Tensor, fields: torch.Tensor,
+                                 tps: torch.Tensor, windows: torch.Tensor,
+                                 window: int) -> torch.Tensor:
+    """:func:`slab_block_partials_plain` of a q8 plan group: unpack
+    lidx(9)|cid(7)|wx(8)|wy(8), fractions times the f32 reciprocal of 255;
+    pads have lidx = 511 >= window."""
+    g = fields[:, 0]
+    li = ((g >> 23) & 0x1FF).to(torch.int64)
+    cid = ((g >> 16) & 0x7F).to(torch.int64)
+    x1 = ((g >> 8) & 0xFF).to(torch.float32) * (1.0 / 255.0)
+    y1 = (g & 0xFF).to(torch.float32) * (1.0 / 255.0)
+    return _partials_plain(table, windows, window, li, x1, y1,
+                           _unpack_targets(tps[:, 0]), cid, li < window)
+
+
+# ---- kernel wrappers -----------------------------------------------------
+
+
 @functools.cache
-def _launcher():
-    fn = load_library("slab_sampling").slab_partials_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+def _launcher(symbol: str, split_tp: bool):
+    fn = getattr(load_library("slab_sampling"), symbol)
+    fn.argtypes = ([ctypes.c_void_p] * (5 if split_tp else 4)
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -333,59 +530,142 @@ def _launcher():
 _MAX_WINDOW = 1000  # window x 12 f32 + the accumulators within 48 KB smem
 
 
-def slab_block_partials(table: torch.Tensor, fields: torch.Tensor,
-                        windows: torch.Tensor, window: int) -> torch.Tensor:
-    """Kernel wrapper of :func:`slab_block_partials_plain`."""
+def _check(table, fields, tps, windows, window, nf, field_dtype, name):
+    """Shapes, dtypes and devices of a wrapper call; True when the call
+    runs on the card."""
     if table.dim() != 2 or table.shape[1] != 12 or table.shape[0] % window:
         raise ValueError(f"table must be (rp, 12) with rp a multiple of "
                          f"{window}, got {tuple(table.shape)}")
-    if fields.dim() != 3 or fields.shape[1] != 8:
-        raise ValueError(f"fields must be (NB, 8, block), got "
+    if fields.dim() != 3 or fields.shape[1] != nf:
+        raise ValueError(f"{name}: fields must be (NB, {nf}, block), got "
                          f"{tuple(fields.shape)}")
     if windows.shape != (fields.shape[0],):
         raise ValueError("windows must be (NB,)")
-    if (table.dtype, fields.dtype, windows.dtype) != (
-            torch.float32, torch.float32, torch.int32):
-        raise TypeError("need f32 table and fields and int32 windows")
-    if not table.device == fields.device == windows.device:
-        raise ValueError("table, fields and windows must be on one device")
+    tensors = [table, fields, windows]
+    dtypes = [torch.float32, field_dtype, torch.int32]
+    if tps is not None:
+        if tps.shape != (fields.shape[0], 1, fields.shape[2]):
+            raise ValueError("tps must be (NB, 1, block)")
+        tensors.append(tps)
+        dtypes.append(torch.float32)
+    if [t.dtype for t in tensors] != dtypes:
+        raise TypeError(f"{name}: need dtypes {dtypes}, got "
+                        f"{[t.dtype for t in tensors]}")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("table, fields, tps and windows must be on one device")
     if fields.device.type == "cpu":
-        return slab_block_partials_plain(table, fields, windows, window)
+        return False
     if fields.device.type != "cuda":
         raise ValueError(f"unsupported device {fields.device}")
-    if not all(t.is_contiguous() for t in (table, fields, windows)):
-        raise ValueError("table, fields and windows must be contiguous")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("table, fields, tps and windows must be contiguous")
     if not 0 < window <= _MAX_WINDOW:
         raise ValueError(f"window must be in (0, {_MAX_WINDOW}]")
+    return True
+
+
+def _launch(symbol, table, fields, tps, windows, window, name):
     nb, _, block = fields.shape
     out = torch.empty((nb, 2, GROUP), dtype=torch.float32,
                       device=fields.device)
     if nb == 0:
         return out
-    err = _launcher()(table.data_ptr(), fields.data_ptr(), windows.data_ptr(),
-                      out.data_ptr(), nb, block, window,
-                      stream_ptr(fields.device))
+    ptrs = [table.data_ptr(), fields.data_ptr()]
+    if tps is not None:
+        ptrs.append(tps.data_ptr())
+    ptrs += [windows.data_ptr(), out.data_ptr()]
+    launch = _launcher(symbol, tps is not None)
+    with on_device(fields.device) as stream:
+        err = launch(*ptrs, nb, block, window, stream)
     if err != 0:
-        raise RuntimeError(f"slab_block_partials launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    return out
+
+
+def slab_block_partials(table: torch.Tensor, fields: torch.Tensor,
+                        windows: torch.Tensor, window: int) -> torch.Tensor:
+    """Kernel wrapper of :func:`slab_block_partials_plain` (f32 plans)."""
+    if not _check(table, fields, None, windows, window, 8, torch.float32,
+                  "slab_block_partials"):
+        return slab_block_partials_plain(table, fields, windows, window)
+    out = _launch("slab_partials_launch", table, fields, None, windows,
+                  window, "slab_block_partials")
     slab_block_partials.launches += 1
     return out
 
 
+def slab_block_partials_compact(table: torch.Tensor, fields: torch.Tensor,
+                                tps: torch.Tensor, windows: torch.Tensor,
+                                window: int) -> torch.Tensor:
+    """Kernel wrapper of :func:`slab_block_partials_compact_plain`."""
+    if not _check(table, fields, tps, windows, window, 3, torch.float32,
+                  "slab_block_partials_compact"):
+        return slab_block_partials_compact_plain(table, fields, tps, windows,
+                                                 window)
+    out = _launch("slab_partials_compact_launch", table, fields, tps,
+                  windows, window, "slab_block_partials_compact")
+    slab_block_partials_compact.launches += 1
+    return out
+
+
+def slab_block_partials_q8(table: torch.Tensor, fields: torch.Tensor,
+                           tps: torch.Tensor, windows: torch.Tensor,
+                           window: int) -> torch.Tensor:
+    """Kernel wrapper of :func:`slab_block_partials_q8_plain`."""
+    if window > _Q8_MAX_WINDOW:
+        raise ValueError(f"q8 plans need window <= {_Q8_MAX_WINDOW}")
+    if not _check(table, fields, tps, windows, window, 1, torch.int32,
+                  "slab_block_partials_q8"):
+        return slab_block_partials_q8_plain(table, fields, tps, windows,
+                                            window)
+    out = _launch("slab_partials_q8_launch", table, fields, tps, windows,
+                  window, "slab_block_partials_q8")
+    slab_block_partials_q8.launches += 1
+    return out
+
+
 slab_block_partials.launches = 0
+slab_block_partials_compact.launches = 0
+slab_block_partials_q8.launches = 0
+
+
+def _check_refresh(compact: bool, tp_is_pid: bool, rgb) -> None:
+    if compact and tp_is_pid and rgb is None:
+        raise ValueError(
+            "compact plan was built refresh-capable (tp_is_pid=True); "
+            "pass the cloud colors so targets can be baked"
+        )
+    if compact and rgb is not None and not tp_is_pid:
+        raise ValueError(
+            "per-query color refresh needs a compact plan built with "
+            "tp_is_pid=True (this one stores packed targets, not point ids)"
+        )
 
 
 def slab_group_partials(table: torch.Tensor, fields: torch.Tensor,
                         windows: torch.Tensor, window: int = WINDOW,
-                        rgb: Optional[torch.Tensor] = None):
+                        rgb: Optional[torch.Tensor] = None,
+                        tps: Optional[torch.Tensor] = None,
+                        compact: bool = False, quant: bool = False):
     """(loss_sum, valid_count), each (128,), of ONE candidate group.
 
     ``rgb`` re-bakes the targets from the plan's point ids (per-query
-    colour rebinds): the group's fields are copied with new rgb rows."""
+    colour rebinds).  An f32 group is copied with new rgb rows; a compact
+    or q8 group keeps its geometry and only its ``tps`` stream is rebuilt,
+    one gather of the packed colours outside the kernel, as in JAX."""
     if rgb is not None:
-        pids = fields[:, _F_PID].to(torch.int64)
-        fields = fields.clone()
-        fields[:, _F_TR:_F_TB + 1] = rgb[pids].permute(0, 2, 1)
-    out = slab_block_partials(table, fields, windows, window)
+        if compact or quant:
+            tps = pack_rgb24(rgb)[tps.to(torch.int64)]
+        else:
+            pids = fields[:, _F_PID].to(torch.int64)
+            fields = fields.clone()
+            fields[:, _F_TR:_F_TB + 1] = rgb[pids].permute(0, 2, 1)
+    if quant:
+        out = slab_block_partials_q8(table, fields, tps, windows, window)
+    elif compact:
+        out = slab_block_partials_compact(table, fields, tps, windows, window)
+    else:
+        out = slab_block_partials(table, fields, windows, window)
     return out[:, 0].sum(0), out[:, 1].sum(0)
 
 
@@ -401,11 +681,13 @@ def slab_pair_scores(img: torch.Tensor, plan: GridPlan,
             f"the query image is {H}x{W} — its table rows index a different "
             "sampling table (stale plan?)"
         )
+    _check_refresh(plan.compact, plan.tp_is_pid, rgb)
     table = slab_table(img, wrap=plan.wrap, window=plan.window)
+    tps_seq = plan.tps if plan.compact else (None,) * len(plan.fields)
     scores = []
-    for fields, windows in zip(plan.fields, plan.windows):
+    for fields, windows, tps in zip(plan.fields, plan.windows, tps_seq):
         tot, cnt = slab_group_partials(table, fields, windows, plan.window,
-                                       rgb)
+                                       rgb, tps, plan.compact, plan.quant)
         mean = tot / cnt.clamp_min(1.0)
         scores.append(torch.where(cnt > 0, mean,
                                   torch.full_like(mean, float("inf"))))

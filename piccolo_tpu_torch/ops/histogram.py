@@ -32,13 +32,21 @@ def bin_ids(img255: torch.Tensor, bins: Sequence[int] = (8, 8, 8)) -> torch.Tens
 
 def masked_histogram(img255: torch.Tensor, mask: torch.Tensor,
                      bins: Sequence[int] = (8, 8, 8),
-                     normalize: bool = True) -> torch.Tensor:
-    """Flat (prod(bins),) histogram of the masked pixels."""
+                     normalize: bool = True,
+                     use_kernel: bool = False) -> torch.Tensor:
+    """Flat (prod(bins),) histogram of the masked pixels.  ``use_kernel``
+    routes through ``kernels.histogram`` (the CUDA kernel on the card), as
+    ``use_pallas`` routes the JAX package's through its Pallas kernel."""
     nb = math.prod(bins)
-    ids = bin_ids(img255, bins).reshape(-1).to(torch.int64)
+    ids = bin_ids(img255, bins).reshape(-1)
     m = mask.reshape(-1).to(torch.float32)
-    hist = torch.zeros(nb, dtype=torch.float32, device=m.device)
-    hist.index_add_(0, ids, m)
+    if use_kernel:
+        from ..kernels.histogram import masked_histogram_counts
+
+        hist = masked_histogram_counts(ids.contiguous(), m.contiguous(), nb)
+    else:
+        hist = torch.zeros(nb, dtype=torch.float32, device=m.device)
+        hist.index_add_(0, ids.to(torch.int64), m)
     if normalize:
         hist = hist / hist.sum().clamp_min(1e-12)
     return hist

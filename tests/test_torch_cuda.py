@@ -1,10 +1,15 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card.
 
 Marked ``cuda``: these need an NVIDIA GPU with nvcc and skip elsewhere.
-Run them on the card with ``python -m pytest tests/test_torch_cuda.py -m cuda``.
-Block histograms are bit-exact; slab counts are exact and sums agree within
-rtol 1e-5 (the kernel adds floats with atomics, in no fixed order).
+Run them on the card with
+``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda``
+(``tests/conftest.py`` imports jax).  Histograms are bit-exact; slab counts
+are exact and sums agree within rtol 1e-5 (the kernels add floats with
+atomics, in no fixed order).  The two tests of launches on a card that is
+not the current one need two cards.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -15,6 +20,10 @@ from piccolo_tpu_torch.kernels.block_histogram import (
     block_histogram_plain,
 )
 from piccolo_tpu_torch.kernels import slab_sampling as slab
+from piccolo_tpu_torch.kernels.histogram import (
+    masked_histogram_counts,
+    masked_histogram_counts_plain,
+)
 from piccolo_tpu_torch.testing import make_room, render_at
 
 pytestmark = pytest.mark.cuda
@@ -56,3 +65,117 @@ def test_slab_kernel_matches_plain(dev):
         torch.cuda.synchronize()
         assert torch.equal(got[:, 1], want[:, 1])
         torch.testing.assert_close(got[:, 0], want[:, 0], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("N", [524288, 3001])
+def test_masked_histogram_kernel_bit_exact(dev, N):
+    g = torch.Generator(device="cpu").manual_seed(N)
+    ids = torch.randint(-3, 530, (N,), generator=g, dtype=torch.int32).to(dev)
+    mask = (torch.rand((N,), generator=g) < 0.7).to(torch.float32).to(dev)
+    n0 = masked_histogram_counts.launches
+    got = masked_histogram_counts(ids, mask)
+    torch.cuda.synchronize()
+    assert masked_histogram_counts.launches == n0 + 1
+    assert torch.equal(got, masked_histogram_counts_plain(ids, mask))
+
+
+@pytest.mark.parametrize("layout", ["compact", "q8"])
+def test_slab_layout_kernels_match_plain(dev, layout):
+    rng = np.random.default_rng(4)
+    xyz, rgb = make_room(rng, n_per_wall=700)
+    img = render_at(xyz, rgb, np.zeros(3, np.float32),
+                    np.array([0.4, 0.1, 0.0], np.float32), (64, 128), device=dev)
+    trans = rng.uniform(-1.0, 1.0, (5, 3)).astype(np.float32)
+    rot = np.stack([np.linspace(0, 6.28, 8, endpoint=False), np.zeros(8),
+                    np.zeros(8)], 1).astype(np.float32)
+    plan = slab.build_grid_plan(xyz, rgb, None, trans, rot, 64, 128,
+                                compact=True, tp_is_pid=True,
+                                quant=layout == "q8", device=dev)
+    table = slab.slab_table(img, window=plan.window)
+    kernel, plain = {
+        "compact": (slab.slab_block_partials_compact,
+                    slab.slab_block_partials_compact_plain),
+        "q8": (slab.slab_block_partials_q8, slab.slab_block_partials_q8_plain),
+    }[layout]
+    rgb_t = torch.tensor(rgb, device=dev)
+    for f, w, tp in zip(plan.fields, plan.windows, plan.tps):
+        tps = slab.pack_rgb24(rgb_t)[tp.to(torch.int64)]  # the re-bake
+        n0 = kernel.launches
+        got = kernel(table, f, tps, w, plan.window)
+        want = plain(table, f, tps, w, plan.window)
+        torch.cuda.synchronize()
+        assert kernel.launches == n0 + 1
+        assert torch.equal(got[:, 1], want[:, 1])
+        torch.testing.assert_close(got[:, 0], want[:, 0], rtol=1e-5, atol=1e-6)
+
+
+@pytest.fixture
+def two_cards(dev):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+def test_kernels_launch_on_a_card_that_is_not_current(two_cards):
+    """Each wrapper launches on its tensors' card, whichever card is
+    current, and leaves the current card as it was."""
+    current, other = two_cards
+    torch.cuda.set_device(current)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    ids = torch.randint(-3, 530, (7, 3001), generator=g,
+                        dtype=torch.int32).to(other)
+    mask = (torch.rand((7, 3001), generator=g) < 0.7).to(torch.float32).to(other)
+    assert torch.equal(block_histogram(ids, mask),
+                       block_histogram_plain(ids, mask))
+    assert torch.equal(masked_histogram_counts(ids[0], mask[0]),
+                       masked_histogram_counts_plain(ids[0], mask[0]))
+    rng = np.random.default_rng(4)
+    xyz, rgb = make_room(rng, n_per_wall=700)
+    img = render_at(xyz, rgb, np.zeros(3, np.float32),
+                    np.array([0.4, 0.1, 0.0], np.float32), (64, 128),
+                    device=other)
+    trans = rng.uniform(-1.0, 1.0, (5, 3)).astype(np.float32)
+    rot = np.stack([np.linspace(0, 6.28, 8, endpoint=False), np.zeros(8),
+                    np.zeros(8)], 1).astype(np.float32)
+    for kw in (dict(), dict(compact=True), dict(compact=True, quant=True)):
+        plan = slab.build_grid_plan(xyz, rgb, None, trans, rot, 64, 128,
+                                    device=other, **kw)
+        got = slab.slab_pair_scores(img, plan)
+        want = slab.slab_pair_scores(img.cpu(), dataclasses.replace(
+            plan, fields=tuple(f.cpu() for f in plan.fields),
+            windows=tuple(w.cpu() for w in plan.windows),
+            tps=tuple(t.cpu() for t in plan.tps)))
+        torch.cuda.synchronize(other)
+        assert got.device == other
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+    assert torch.cuda.current_device() == current.index
+
+
+def test_cli_device_index_runs_on_that_card(two_cards, tmp_path):
+    """``device_index = 1`` runs the whole CLI on the second card, with the
+    winners of ``device_index = 0``."""
+    import csv
+    import os
+
+    from piccolo_tpu_torch.main import main as tmain
+    from piccolo_tpu_torch.testing import write_synth_stanford
+
+    root = str(tmp_path / "data")
+    write_synth_stanford(root, rooms=1, queries=2, points=12000, height=128,
+                         seed=7, oracle="raycast")
+    config = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "configs", "stanford.ini")
+    winners = []
+    for i in (0, 1):
+        log = str(tmp_path / f"log{i}")
+        n0 = slab.slab_block_partials_q8.launches
+        tmain(["--config", config, "--log", log, "--no-tensorboard",
+               "--override", f"data_root={root},device_index={i},"
+               "slab_init=True,slab_quant=True,num_iter=20"])
+        assert slab.slab_block_partials_q8.launches > n0
+        with open(os.path.join(log, "stanford_results.csv")) as f:
+            rows = list(csv.reader(f))[1:]
+        winners.append(np.array([[float(v) for v in r[5].split()]
+                                 for r in rows]))
+    assert winners[0].shape == (2, 3)
+    np.testing.assert_allclose(winners[1], winners[0], atol=1e-4)

@@ -31,7 +31,7 @@ def test_import_loads_no_jax_and_no_reference_package():
     out = subprocess.run([sys.executable, "-c", _PROBE], check=True,
                          capture_output=True, text=True,
                          cwd=PKG.parent).stdout.split("\n")
-    assert int(out[0]) >= 20  # every submodule was imported
+    assert int(out[0]) >= 36  # every submodule was imported
     assert out[1] == "[]"
 
 

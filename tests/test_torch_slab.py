@@ -82,12 +82,13 @@ def test_plan_layout_bit_exact(scene, window, block):
 
     n_win = tslab._rpad(32, 64, window) // window
     trow = torch.tensor(np.asarray(row))
-    assert tslab._nb_bucket(tslab._blocks_needed(trow, n_win, window, block)) == nb
-    got_f, got_w = tslab._layout_group(
+    assert tslab.nb_bucket(tslab._blocks_needed(trow, n_win, window, block)) == nb
+    got_f, got_w, got_t = tslab._layout_group(
         trow, torch.tensor(np.asarray(wx1)), torch.tensor(np.asarray(wy1)),
         torch.tensor(s["rgb"]), nb=nb, n_win=n_win, window=window, block=block)
     np.testing.assert_array_equal(got_f.numpy(), np.asarray(want_f))
     np.testing.assert_array_equal(got_w.numpy(), np.asarray(want_w))
+    assert got_t is None  # f32 plans have no split target stream
 
 
 @pytest.mark.parametrize("refresh", [False, True])
@@ -146,12 +147,51 @@ def test_rgb_refresh_end_to_end(scene):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("kw", [dict(compact=True), dict(quant=True)])
+@pytest.mark.parametrize("kw", [
+    dict(quant=True),
+    dict(compact=True, quant=True, window=512, block=1024),
+])
 def test_unported_layouts_raise(scene, kw):
+    """The compact and q8 layouts are ported; what stays unbuildable is a
+    q8 plan outside the compact mode or with a window its 9-bit lidx field
+    cannot address, and both raise as in the JAX package."""
     s = scene
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(ValueError, match="sub-mode of compact|window <= 256"):
         tslab.build_grid_plan(s["xyz"], s["rgb"], s["mask"], s["trans"],
                               s["rot"], 32, 64, device="cpu", **kw)
+    with pytest.raises(ValueError):
+        jslab.build_grid_plan(*(jnp.asarray(s[k]) for k in (
+            "xyz", "rgb", "mask", "trans", "rot")), 32, 64, **kw)
+
+
+def test_default_plan_bytes_cap_follows_the_current_card(monkeypatch):
+    """Without a device the cap is 9/16 of the current CUDA device's
+    memory, as JAX sizes it from its default device; 9 GB off the card."""
+    assert tslab.default_plan_bytes_cap() == tslab.DEFAULT_PLAN_BYTES_CAP
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda device=None: (10**9, 80 * 2**30))
+    assert tslab.default_plan_bytes_cap() == int(80 * 2**30 * 9 / 16)
+    assert tslab.default_plan_bytes_cap("cuda:0") == int(80 * 2**30 * 9 / 16)
+    assert tslab.default_plan_bytes_cap("cpu") == tslab.DEFAULT_PLAN_BYTES_CAP
+
+
+@pytest.mark.parametrize("compact,quant", [(False, False), (True, False),
+                                           (True, True), (False, True)])
+def test_plan_exact_bytes_matches_jax(compact, quant):
+    """The JAX signature (n_groups, nb, compact, block, quant): positional
+    and keyword calls agree with the JAX function for every layout."""
+    for n_groups, nb, block in ((9, 384, 1024), (1, 256, 512)):
+        want = jslab.plan_exact_bytes(n_groups, nb, compact, block, quant=quant)
+        assert tslab.plan_exact_bytes(n_groups, nb, compact, block,
+                                      quant=quant) == want
+        assert tslab.plan_exact_bytes(n_groups, nb, compact, block, quant) \
+            == want
+        assert tslab.plan_exact_bytes(n_groups=n_groups, nb=nb,
+                                      compact=compact, block=block,
+                                      quant=quant) == want
+    assert tslab.plan_exact_bytes(2, 256, compact) == jslab.plan_exact_bytes(
+        2, 256, compact)
 
 
 def test_plan_bytes_budget_and_stale_shape(scene):
@@ -162,7 +202,7 @@ def test_plan_bytes_budget_and_stale_shape(scene):
     plan = tslab.build_grid_plan(s["xyz"], s["rgb"], s["mask"], s["trans"],
                                  s["rot"], 32, 64, bytes_cap=10**9, device="cpu")
     assert tslab.plan_exact_bytes(len(plan.fields), plan.fields[0].shape[0],
-                                  plan.block) == plan.nbytes
+                                  False, plan.block) == plan.nbytes
     assert tslab.default_plan_bytes_cap("cpu") == tslab.DEFAULT_PLAN_BYTES_CAP
     with pytest.raises(ValueError, match="stale plan"):
         tslab.slab_pair_scores(torch.zeros(64, 128, 3), plan)
