@@ -26,9 +26,12 @@ Phases (any failure exits non-zero; each prints its seconds):
      CLI loads it under configs/stanford.ini;
   9. the layout kernels at the CLI's shapes: a compact and a q8 plan with
      point ids (the re-bake path) from the CLI's room and grids, each
-     kernel against its plain version on every group with the first
-     query's init image (counts exact, sums rtol 1e-5), group 0 timed;
-     and the masked histogram at N = 524,288 and 3,001 (bit-exact), timed;
+     group-sum kernel against its plain version on every group with the
+     first query's init image, re-bake fused and unfused (counts exact,
+     sums rtol 1e-5), group 0 timed against the recounted bound and PR 2's;
+     stage 1 of a query (slab_pair_scores, all groups) with the fused
+     re-bake against the re-bake as a separate gather, in turns; and the
+     masked histogram at N = 524,288 and 3,001 (bit-exact), timed;
  10. eight in-process runs of ``piccolo_tpu_torch.main`` on that tree with
      configs/stanford.ini:
        A  the shipped config (the ladder's own route),
@@ -81,12 +84,19 @@ def log(*a):
     print(*a, flush=True)
 
 
+HOST_LEAD_CYCLES = 2_000_000  # ~1 ms of sleep kernel on an H100
+
+
 def cuda_ms(fn, reps=20):
-    """Median milliseconds of one call, CUDA events around each call."""
+    """Median device milliseconds of one call: CUDA events around each
+    call, with a sleep kernel queued first so that the host enqueues the
+    call while the card is still busy, and the events time the card's work
+    and not the host's Python and launch overhead."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        torch.cuda._sleep(HOST_LEAD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -314,12 +324,53 @@ def phase_cli_room(dev, tmp):
                 n_pairs=n_pairs, groups=-(-n_pairs // 128), est=est)
 
 
+def _unfused_pair_scores(img, plan, rgb):
+    """slab_pair_scores with the per-query re-bake done as a separate gather
+    in every group (the route before the kernel took the palette): phase
+    9's yardstick for the fused stage 1."""
+    from piccolo_tpu_torch.kernels import slab_sampling as slab
+
+    table = slab.slab_table(img, wrap=plan.wrap, window=plan.window)
+    sums = slab.slab_group_sums_q8 if plan.quant else slab.slab_group_sums_compact
+    scores = []
+    for f, w, tp in zip(plan.fields, plan.windows, plan.tps):
+        tps = slab.pack_rgb24(rgb)[tp.to(torch.int64)]
+        tot, cnt = sums(table, f, tps, w, plan.window)
+        mean = tot / cnt.clamp_min(1.0)
+        scores.append(torch.where(cnt > 0, mean,
+                                  torch.full_like(mean, float("inf"))))
+    return torch.cat(scores)[: plan.n_pairs]
+
+
+def cuda_ms_turns(fns, reps=20):
+    """Median milliseconds of each of ``fns``, timed in turns (one call of
+    each per round, CUDA events around each call), host overhead included:
+    what a query pays."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for _ in range(reps):
+        for fn, ts in zip(fns, times):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            ts.append(start.elapsed_time(end))
+    return [float(np.median(ts)) for ts in times]
+
+
 def phase_layout_kernels(cli, dev):
-    """The compact and q8 slab kernels at the CLI's shapes, and the masked
-    histogram, against their plain versions, timed.  The plans are built
-    as the CLI's forced runs B and C build them (point ids, for the
+    """The compact and q8 group-sum kernels at the CLI's shapes, and the
+    masked histogram, against their plain versions, timed.  The plans are
+    built as the CLI's forced runs B and C build them (point ids, for the
     sharpen_color re-bake) from the CLI's room and grids, and every group
-    is scored with the first query's init image and re-baked colours."""
+    is scored with the first query's init image and colours, with the
+    re-bake fused (palette) and unfused (re-baked targets).  Then stage 1
+    of a query, slab_pair_scores over all 9 groups, fused against unfused
+    in turns."""
     from piccolo_tpu_torch.kernels import slab_sampling as slab
     from piccolo_tpu_torch.kernels.histogram import (
         masked_histogram_counts,
@@ -329,15 +380,16 @@ def phase_layout_kernels(cli, dev):
     grids = cli["grids"]
     img = torch.as_tensor(cli["img_init"], device=dev)
     H, W = img.shape[0], img.shape[1]
-    packed = slab.pack_rgb24(cli["rgb_used"])
+    rgb = cli["rgb_used"]
+    palette = slab.pack_rgb24(rgb)
     rows = []
-    # bytes a sample must bring (real / pad slot) and ~f32 operations per
-    # real sample: the f32 kernel's 42 plus the decode
+    # bytes a real sample must bring and ~f32 operations per real sample:
+    # the f32 kernel's 42 plus the decode
     spec = {
-        "compact": (slab.slab_block_partials_compact,
-                    slab.slab_block_partials_compact_plain, 16, 54, 689),
-        "q8": (slab.slab_block_partials_q8, slab.slab_block_partials_q8_plain,
-               8, 59, 711),
+        "compact": (slab.slab_group_sums_compact,
+                    slab.slab_group_sums_compact_plain, 16, 54, 689),
+        "q8": (slab.slab_group_sums_q8, slab.slab_group_sums_q8_plain, 8, 59,
+               711),
     }
     for layout, (kernel, plain, per_real, ops_per, line) in spec.items():
         torch.cuda.synchronize()
@@ -355,18 +407,21 @@ def phase_layout_kernels(cli, dev):
         err = 0.0
         for g, (f, w, tp) in enumerate(zip(plan.fields, plan.windows,
                                            plan.tps)):
-            tps = packed[tp.to(torch.int64)]  # the per-query re-bake
-            got = kernel(table, f, tps, w, plan.window)
-            want = plain(table, f, tps, w, plan.window)
-            torch.cuda.synchronize()
-            if not torch.equal(got[:, 1], want[:, 1]):
-                raise AssertionError(f"{layout} slab kernel counts differ "
-                                     f"from the plain version in group {g}")
-            torch.testing.assert_close(got[:, 0], want[:, 0], rtol=1e-5,
-                                       atol=1e-6)
-            err = max(err, float((got[:, 0] - want[:, 0]).abs().max()))
-        f, w = plan.fields[0], plan.windows[0]
-        tps = packed[plan.tps[0].to(torch.int64)]
+            rebaked = palette[tp.to(torch.int64)]
+            for route, args in (("fused", (tp, palette)),
+                                ("unfused", (rebaked, None))):
+                got = kernel(table, f, args[0], w, plan.window, args[1])
+                want = plain(table, f, args[0], w, plan.window, args[1])
+                torch.cuda.synchronize()
+                if not torch.equal(got[1], want[1]):
+                    raise AssertionError(
+                        f"{layout} slab kernel ({route}) counts differ from "
+                        f"the plain version in group {g}")
+                torch.testing.assert_close(got[0], want[0], rtol=1e-5,
+                                           atol=1e-6)
+                err = max(err, float((got[0] - want[0]).abs().max()))
+        f, w, tp = plan.fields[0], plan.windows[0], plan.tps[0]
+        rebaked = palette[tp.to(torch.int64)]
         nb, _, block = f.shape
         if layout == "q8":
             real = ((f[:, 0] >> 23) & 0x1FF) < plan.window
@@ -374,25 +429,47 @@ def phase_layout_kernels(cli, dev):
             real = f[:, 0] >= 0
         samples = int(real.sum())
         pads = nb * block - samples
+        pad_blocks = int((~real[:, 0]).sum())
         n_win = int(torch.unique(w).numel())
-        # real: every field and the target, pad: its first field; each
-        # distinct table window once, the windows and the partials
-        nbytes = (samples * per_real + pads * 4 + n_win * plan.window * 48
-                  + nb * 4 + nb * 2 * 128 * 4)
+        # recounted: the real samples, a 4 B probe a block, each distinct
+        # table window once, the windows, the palette once (the kernel
+        # re-bakes) and the (2, 128) sums
+        nbytes = (samples * per_real + nb * 4 + n_win * plan.window * 48
+                  + nb * 4 + palette.numel() * 4 + 2 * 128 * 4)
+        # PR 2's count, kept for continuity: a pad slot's first field and
+        # per-block partials
+        nbytes_pr2 = (samples * per_real + pads * 4
+                      + n_win * plan.window * 48 + nb * 4 + nb * 2 * 128 * 4)
         bound_ms, bound_by = _bound(nbytes, samples * ops_per)
+        bound_pr2, _ = _bound(nbytes_pr2, samples * ops_per)
+        ms = cuda_ms(lambda: kernel(table, f, tp, w, plan.window, palette))
+        ms_unfused = cuda_ms(lambda: kernel(table, f, rebaked, w, plan.window))
         rows.append(dict(
             name=kernel.__name__, route="cuda",
             source="piccolo_tpu_torch/kernels/csrc/slab_sampling.cu",
             replaces=f"piccolo_tpu/kernels/slab_sampling.py:{line}",
-            max_abs_err=err,
-            ms=cuda_ms(lambda: kernel(table, f, tps, w, plan.window)),
-            plain_ms=cuda_ms(lambda: plain(table, f, tps, w, plan.window)),
+            max_abs_err=err, ms=ms,
+            plain_ms=cuda_ms(lambda: plain(table, f, tp, w, plan.window,
+                                           palette)),
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
-        log(f"{layout} slab kernel vs plain on all {len(plan.fields)} groups: "
-            f"counts exact, max |sum err| {err:.3g}; group 0 timed (nb={nb}, "
-            f"block={block}, {samples} real samples, {pads} pad slots, "
-            f"{n_win} distinct windows, {nbytes} B needed)")
-        del plan, table, f, w, tps
+        log(f"{layout} slab kernel vs plain on all {len(plan.fields)} groups, "
+            f"fused and unfused: counts exact, max |sum err| {err:.3g}; "
+            f"group 0 (nb={nb}, block={block}, {samples} real samples, "
+            f"{pads} pad slots, {pad_blocks} blocks with a pad slot 0, "
+            f"{n_win} distinct windows): fused {ms:.4f} ms, unfused "
+            f"{ms_unfused:.4f} ms; bound {bound_ms:.4f} ms ({nbytes} B "
+            f"recounted), {bound_pr2:.4f} ms by PR 2's count ({nbytes_pr2} B)")
+        # stage 1 of a query as slab_pair_scores runs it, all groups
+        fused_q, unfused_q = cuda_ms_turns([
+            lambda: slab.slab_pair_scores(img, plan, rgb),
+            lambda: _unfused_pair_scores(img, plan, rgb)], reps=10)
+        a = slab.slab_pair_scores(img, plan, rgb)
+        b = _unfused_pair_scores(img, plan, rgb)
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        log(f"{layout} stage 1 per query ({len(plan.fields)} groups, "
+            f"slab_pair_scores): fused re-bake {fused_q:.4f} ms, re-bake as "
+            f"a separate gather {unfused_q:.4f} ms")
+        del plan, table, f, w, tp, rebaked
 
     g = torch.Generator(device="cpu").manual_seed(1)
     for n in (524288, 3001):
@@ -542,6 +619,7 @@ def phase_profile(room, dev, median_s):
     from torch.profiler import ProfilerActivity, profile
 
     own = {"slab_partials_kernel": "localize.stage1_loss_table",
+           "slab_sums_kernel": "localize.stage1_loss_table",
            "block_histogram_kernel": "localize.stage2_hist_trim"}
     _, _, img_init, img_main = _query_images(300, room["xyz"], room["rgb"], dev)
     torch.cuda.synchronize()
@@ -611,8 +689,8 @@ def phase_cli(cli, dev):
     n_q, tree, groups, est = CLI_QUERIES, cli["tree"], cli["groups"], cli["est"]
     R = int(cli["grids"].rot.shape[0])
     kernels = {fn.__name__: fn for fn in (
-        slab.slab_block_partials, slab.slab_block_partials_compact,
-        slab.slab_block_partials_q8, block_histogram, masked_histogram_counts)}
+        slab.slab_block_partials, slab.slab_group_sums_compact,
+        slab.slab_group_sums_q8, block_histogram, masked_histogram_counts)}
     builds = []
     real_build = slab.build_grid_plan
 
@@ -630,20 +708,20 @@ def phase_cli(cli, dev):
     forced = "slab_init=True,slab_background_build=False"
     runs = [
         ("A", None, ""),
-        ("B", "slab_block_partials_compact",
+        ("B", "slab_group_sums_compact",
          f"{forced},slab_compact=True,slab_plan_cache=True,"
          f"slab_plan_cache_dir={plans}"),
-        ("B'", "slab_block_partials_compact",
+        ("B'", "slab_group_sums_compact",
          f"{forced},slab_compact=True,slab_plan_cache=True,"
          f"slab_plan_cache_dir={plans}"),
-        ("C", "slab_block_partials_q8",
+        ("C", "slab_group_sums_q8",
          f"{forced},slab_quant=True,slab_plan_cache=False"),
         ("D", "slab_block_partials",
          f"sharpen_color=False,{forced},slab_plan_cache=False"),
         ("E", "", "sharpen_color=False,slab_init=False,hist_planes=False"),
-        ("F", "slab_block_partials_q8",
+        ("F", "slab_group_sums_q8",
          f"sharpen_color=False,slab_bytes_cap={cap_f}"),
-        ("G", "slab_block_partials_q8",
+        ("G", "slab_group_sums_q8",
          f"sharpen_color=False,slab_bytes_cap={cap_g},"
          "slab_background_build=True"),
     ]
@@ -740,10 +818,9 @@ def phase_cli(cli, dev):
         slab.build_grid_plan = real_build
     return {
         "slab_block_partials": (out["D"]["slab_block_partials"], n_q, "D"),
-        "slab_block_partials_compact":
-            (out["B"]["slab_block_partials_compact"], n_q, "B"),
-        "slab_block_partials_q8": (out["C"]["slab_block_partials_q8"], n_q,
-                                   "C"),
+        "slab_group_sums_compact":
+            (out["B"]["slab_group_sums_compact"], n_q, "B"),
+        "slab_group_sums_q8": (out["C"]["slab_group_sums_q8"], n_q, "C"),
         "block_histogram": (out["A"]["block_histogram"], n_q, "A"),
     }
 

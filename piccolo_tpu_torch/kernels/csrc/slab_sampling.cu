@@ -1,9 +1,9 @@
-// Stage-1 slab scorer: loss sum and valid count per candidate pair of one
+// Stage-1 slab scorers: loss sum and valid count per candidate pair of one
 // 128-pair group, from a room-static plan of sorted sample blocks, in the
 // plan's three layouts.
 //
-// Replaces: piccolo_tpu/kernels/slab_sampling.py::_kernel, _kernel_compact
-// and _kernel_q8 (shared core _score_core), launched by
+// Replaces: piccolo_tpu/kernels/slab_sampling.py::_kernel (f32 plans),
+// _kernel_compact and _kernel_q8 (shared core _score_core), launched by
 // slab_group_partials.  The TPU kernels gather texels with a one-hot MXU
 // product over a 3-way bf16 split of the table, because the MXU is the
 // TPU's only fast gather; an f32 gather from shared memory is exact as it
@@ -15,34 +15,66 @@
 //   f32      fields (nb, 8, block) f32 rows [lidx, wx1, wy1, r, g, b, cid,
 //            pid]; pads have lidx = cid = -1;
 //   compact  fields (nb, 3, block) f32 rows [lidx*128 + cid, wx1, wy1] and
-//            tps (nb, 1, block) f32 targets packed as r<<16|g<<8|b; pads
-//            have lc = -1, so lidx < 0;
+//            tps (nb, 1, block) f32 targets packed as r<<16|g<<8|b, or
+//            point ids; pads have lc = -1, so lidx < 0;
 //   q8       fields (nb, 1, block) int32 lidx(9)|cid(7)|wx(8)|wy(8) and the
 //            same tps; pads have lidx = 511 >= window.
-// Output (nb, 2, 128) f32: per block, the loss sum and the valid count of
-// each pair id.  The sum over blocks happens outside, as in the JAX package.
+// Both builders put each window's samples at the head of its blocks, so a
+// block whose slot 0 is a pad holds no real sample.
 //
-// Design: one CUDA block per plan block.  The block stages its window's
-// window x 12 floats into shared memory (6 KB at window 128), then each
-// thread takes samples i, i + blockDim, ...: it decodes the layout, skips
-// pads, and hands the sample to score_sample, the one scoring core: lerp
+// Scoring, one core for the three layouts (lerp_texels, target_loss): lerp
 // the 12-texel row in bilinear_sample_packed's tap order, drop pure-black
-// samples, take safe_norm's distance to the target rgb and add it (and 1)
-// into the pair's shared-memory slots with atomicAdd.  Decodes follow the
-// JAX kernels: compact splits lc and the packed target with power-of-two
-// scalings (exact) and divides the target bytes by 255 (IEEE division);
-// q8 multiplies its 8-bit fractions by the f32 reciprocal of 255.  Built
-// with -fmad=false: every sample's value rounds exactly like the plain
-// PyTorch version; the sums differ from it only by the order of the float
-// atomics (counts are exact integers).
+// samples, take safe_norm's distance to the target rgb, and add it (and 1)
+// into the sample's pair slots.  Decodes follow the JAX kernels: compact
+// splits lc = lidx*128 + cid and the packed target into exact integers and
+// divides the target bytes by 255 with IEEE rounding; q8 multiplies its
+// 8-bit fractions by the f32 reciprocal of 255.  Built with -fmad=false:
+// every sample's value rounds exactly like the plain PyTorch version's on
+// plans as the builders make them (integer lc and 24-bit targets); the sums
+// differ from it only in the order of the float adds (counts are exact).
 //
-// Bound on the H100: bytes.  A real sample reads 28 B (f32: every field
-// but pid), 16 B (compact) or 8 B (q8); a pad slot 8 B (f32: lidx and
-// cid) or 4 B (compact, q8: the first field); the table windows stay hot
-// in L2.  Reads are coalesced (row-wise 4 B a thread).  Blocks that hold
-// only pads still stage their window; skipping them, TMA streaming of the
-// plan and warp-level pre-aggregation of the atomics are left for later
-// work.
+// f32 plans, slab_partials_kernel: one CUDA block per plan block stages its
+// window (window x 12 f32), adds with shared atomics and writes (nb, 2, 128)
+// per-block partials, which the wrapper sums.  Bound by bytes: 28 B a real
+// sample, 8 B a pad slot.
+//
+// Compact and q8 plans, slab_sums_kernel: a group's sums in one launch.
+// Its byte bound on the H100: 16 B (compact) or 8 B (q8) a real sample, a
+// 4 B probe a plan block, each distinct table window once (48 B a row), the
+// windows, the palette once when the kernel re-bakes, and 1 KB out: at the
+// CLI's shapes (window 256, block 512, 24,576 blocks, 8.4 M real samples a
+// group) 92.5 MB, 0.028 ms, for q8 and 159.6 MB, 0.048 ms, for compact.
+// What the design does:
+//   * persistent CTAs (as many as the card holds) walk the plan in chunks of
+//     `chunk` consecutive blocks, chunk c to CTA c mod grid, so that every
+//     CTA gets an even share; the table window is restaged only when
+//     windows[b] changes, into the second of two shared buffers (cp.async,
+//     16 B a thread) while the current block is scored;
+//   * one probe (a lane a block, one ballot) covers the CTA's next 32
+//     blocks and finds those whose slot 0 is real: pad-only blocks cost a
+//     4 B read and no staging;
+//   * streams are read 16 B a thread (four samples), the next block's while
+//     the current one is scored, with the streaming cache hint;
+//   * the four samples of a thread are lerped before their targets are
+//     needed, and the target bytes' quotients by 255 come from a 256-entry
+//     table of IEEE quotients in shared memory instead of three divisions;
+//   * no atomics: each warp owns a copy of the pair slots; lanes that share
+//     a pair (match_any) hand their losses to the lowest of them, which adds
+//     them in lane order.  Neighbouring table rows see the same poses, so a
+//     warp's lanes often share a pair, and shared memory has no float add of
+//     its own: atomics there are compare-and-swap loops that serialise on
+//     each shared slot.  The CTA adds its warps' copies in warp order and
+//     writes one (2, 128) partial; the wrapper adds the partials in a fixed
+//     order, so a group's sums do not change from run to run;
+//   * with a palette (pack_rgb24 of the query's colours) the tps stream holds
+//     point ids and the kernel looks each target up itself, so the per-query
+//     re-bake writes no target stream.
+// It stays well above that bound: measured apart (scripts/
+// bench_slab_sums.py; numbers in PERF.md), the scoring's latency holds it
+// (6-7 CTAs an SM at 70-80 registers a thread hide too little of it), then
+// the walk and its streams, the palette gathers (a 32 B L2 sector for each
+// 4 B target) and the adds.  Left for later work: fewer registers or more
+// samples a thread in flight, and TMA streaming of the plan.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -52,6 +84,65 @@ namespace {
 constexpr int kGroup = 128;
 constexpr int kTexels = 12;
 constexpr float kInv255 = 1.0f / 255.0f;
+
+// The scoring core shared by the three layouts, in two halves.  First the
+// sample's 12 texels v lerped in bilinear_sample_packed's tap order into
+// s; false for a pure-black sample.
+__device__ __forceinline__ bool lerp_texels(const float* v, float x1,
+                                            float y1, float* s) {
+    const float x0 = 1.0f - x1;
+    const float y0 = 1.0f - y1;
+    const float w00 = x0 * y0, w10 = x1 * y0, w01 = x0 * y1, w11 = x1 * y1;
+    int zeros = 0;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+        s[c] = v[c] * w00 + v[3 + c] * w10 + v[6 + c] * w01 + v[9 + c] * w11;
+        zeros += (s[c] == 0.0f);
+    }
+    return zeros != 3;
+}
+
+// Then safe_norm's distance from s to the target rgb.
+__device__ __forceinline__ float target_loss(const float* s, float tr,
+                                             float tg, float tb) {
+    const float d0 = s[0] - tr;
+    const float d1 = s[1] - tg;
+    const float d2 = s[2] - tb;
+    const float sq = d0 * d0 + d1 * d1 + d2 * d2;
+    return sq > 0.0f ? sqrtf(sq) : 0.0f;
+}
+
+// One sample into its pair's shared-memory slots (f32 plans).
+__device__ __forceinline__ void score_sample(const float* v, float x1,
+                                             float y1, float tr, float tg,
+                                             float tb, int cid, float* acc,
+                                             int* cnt) {
+    float s[3];
+    if (!lerp_texels(v, x1, y1, s)) return;  // pure-black sample
+    atomicAdd(&acc[cid], target_loss(s, tr, tg, tb));
+    atomicAdd(&cnt[cid], 1);
+}
+
+// A packed target r<<16|g<<8|b (a 24-bit integer held in an f32, as
+// pack_rgb24 makes it) -> rgb in [0, 1]: its three bytes, each divided by
+// 255 with IEEE rounding (q255[i] = __fdiv_rn(i, 255)), as the JAX
+// compact/q8 kernels split and divide it.
+__device__ __forceinline__ void unpack_target(float tp, const float* q255,
+                                              float* tr, float* tg,
+                                              float* tb) {
+    const int p = static_cast<int>(tp);
+    *tr = q255[(p >> 16) & 0xFF];
+    *tg = q255[(p >> 8) & 0xFF];
+    *tb = q255[p & 0xFF];
+}
+
+// A byte as an f32, exactly, without the conversion unit: 2^23 + x spelt
+// in the mantissa, less 2^23.
+__device__ __forceinline__ float byte_to_float(uint32_t x) {
+    return __uint_as_float(0x4B000000u | x) - 8388608.0f;
+}
+
+// ---- f32 plans: one CUDA block per plan block --------------------------
 
 // Stage the block's table window and zero the pair accumulators.
 __device__ void stage_window(const float* __restrict__ table,
@@ -67,53 +158,6 @@ __device__ void stage_window(const float* __restrict__ table,
         cnt[i] = 0;
     }
     __syncthreads();
-}
-
-// The scoring core shared by the three layouts: one decoded sample.
-__device__ __forceinline__ void score_sample(const float* tab, int li,
-                                             float x1, float y1, float tr,
-                                             float tg, float tb, int cid,
-                                             float* acc, int* cnt) {
-    const float x0 = 1.0f - x1;
-    const float y0 = 1.0f - y1;
-    const float w00 = x0 * y0, w10 = x1 * y0, w01 = x0 * y1, w11 = x1 * y1;
-    const float* v = tab + li * kTexels;
-    float s[3];
-    int zeros = 0;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-        s[c] = v[c] * w00 + v[3 + c] * w10 + v[6 + c] * w01 + v[9 + c] * w11;
-        zeros += (s[c] == 0.0f);
-    }
-    if (zeros == 3) return;  // pure-black sample
-    const float d0 = s[0] - tr;
-    const float d1 = s[1] - tg;
-    const float d2 = s[2] - tb;
-    const float sq = d0 * d0 + d1 * d1 + d2 * d2;
-    atomicAdd(&acc[cid], sq > 0.0f ? sqrtf(sq) : 0.0f);
-    atomicAdd(&cnt[cid], 1);
-}
-
-// Packed 24-bit target -> rgb in [0, 1], as the JAX compact/q8 kernels.
-__device__ __forceinline__ void unpack_target(float tp, float* tr, float* tg,
-                                              float* tb) {
-    const float r = floorf(tp * (1.0f / 65536.0f));
-    const float rem = tp - r * 65536.0f;
-    const float g = floorf(rem * (1.0f / 256.0f));
-    const float b = rem - g * 256.0f;
-    *tr = __fdiv_rn(r, 255.0f);
-    *tg = __fdiv_rn(g, 255.0f);
-    *tb = __fdiv_rn(b, 255.0f);
-}
-
-__device__ void write_partials(float* __restrict__ out, const float* acc,
-                               const int* cnt) {
-    __syncthreads();
-    float* o = out + static_cast<size_t>(blockIdx.x) * 2 * kGroup;
-    for (int i = threadIdx.x; i < kGroup; i += blockDim.x) {
-        o[i] = acc[i];
-        o[kGroup + i] = static_cast<float>(cnt[i]);
-    }
 }
 
 __global__ void slab_partials_kernel(const float* __restrict__ table,
@@ -132,73 +176,361 @@ __global__ void slab_partials_kernel(const float* __restrict__ table,
         const int li = static_cast<int>(f[i]);
         const int cid = static_cast<int>(f[6 * block + i]);
         if (li < 0 || cid < 0) continue;  // padding slot
-        score_sample(tab, li, f[block + i], f[2 * block + i], f[3 * block + i],
-                     f[4 * block + i], f[5 * block + i], cid, acc, cnt);
+        score_sample(tab + li * kTexels, f[block + i], f[2 * block + i],
+                     f[3 * block + i], f[4 * block + i], f[5 * block + i],
+                     cid, acc, cnt);
     }
-    write_partials(out, acc, cnt);
-}
-
-__global__ void slab_partials_compact_kernel(const float* __restrict__ table,
-                                             const float* __restrict__ fields,
-                                             const float* __restrict__ tps,
-                                             const int* __restrict__ windows,
-                                             float* __restrict__ out,
-                                             int block, int window) {
-    extern __shared__ float smem[];
-    float* tab = smem;
-    float* acc = tab + window * kTexels;
-    int* cnt = reinterpret_cast<int*>(acc + kGroup);
-    stage_window(table, windows, window, tab, acc, cnt);
-
-    const size_t base = static_cast<size_t>(blockIdx.x) * block;
-    const float* f = fields + 3 * base;
-    const float* tp = tps + base;
-    for (int i = threadIdx.x; i < block; i += blockDim.x) {
-        const float lc = f[i];
-        const float lif = floorf(lc * (1.0f / kGroup));
-        if (lif < 0.0f) continue;  // padding slot
-        const int cid = static_cast<int>(lc - lif * kGroup);
-        float tr, tg, tb;
-        unpack_target(tp[i], &tr, &tg, &tb);
-        score_sample(tab, static_cast<int>(lif), f[block + i],
-                     f[2 * block + i], tr, tg, tb, cid, acc, cnt);
+    __syncthreads();
+    float* o = out + static_cast<size_t>(blockIdx.x) * 2 * kGroup;
+    for (int i = threadIdx.x; i < kGroup; i += blockDim.x) {
+        o[i] = acc[i];
+        o[kGroup + i] = static_cast<float>(cnt[i]);
     }
-    write_partials(out, acc, cnt);
-}
-
-__global__ void slab_partials_q8_kernel(const float* __restrict__ table,
-                                        const int* __restrict__ fields,
-                                        const float* __restrict__ tps,
-                                        const int* __restrict__ windows,
-                                        float* __restrict__ out,
-                                        int block, int window) {
-    extern __shared__ float smem[];
-    float* tab = smem;
-    float* acc = tab + window * kTexels;
-    int* cnt = reinterpret_cast<int*>(acc + kGroup);
-    stage_window(table, windows, window, tab, acc, cnt);
-
-    const size_t base = static_cast<size_t>(blockIdx.x) * block;
-    const uint32_t* g = reinterpret_cast<const uint32_t*>(fields) + base;
-    const float* tp = tps + base;
-    for (int i = threadIdx.x; i < block; i += blockDim.x) {
-        const uint32_t p = g[i];
-        const int li = static_cast<int>(p >> 23);
-        if (li >= window) continue;  // padding slot (lidx = 511)
-        const int cid = static_cast<int>((p >> 16) & 0x7Fu);
-        const float x1 = static_cast<float>((p >> 8) & 0xFFu) * kInv255;
-        const float y1 = static_cast<float>(p & 0xFFu) * kInv255;
-        float tr, tg, tb;
-        unpack_target(tp[i], &tr, &tg, &tb);
-        score_sample(tab, li, x1, y1, tr, tg, tb, cid, acc, cnt);
-    }
-    write_partials(out, acc, cnt);
 }
 
 constexpr int kThreads = 256;
 
 size_t smem_bytes(int window) {
     return (static_cast<size_t>(window) * kTexels + 2 * kGroup) * sizeof(float);
+}
+
+// ---- compact and q8 plans: persistent CTAs, the group's sums ------------
+
+constexpr int kSumThreads = 128;
+constexpr int kWarps = kSumThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ float lane4(const float4& v, int k) {
+    return k == 0 ? v.x : (k == 1 ? v.y : (k == 2 ? v.z : v.w));
+}
+
+__device__ __forceinline__ uint32_t lane4(const uint4& v, int k) {
+    return k == 0 ? v.x : (k == 1 ? v.y : (k == 2 ? v.z : v.w));
+}
+
+__device__ __forceinline__ void cp_async16(float4* dst, const float4* src) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(src)
+                 : "memory");
+}
+
+// Start copying table window `win` (window x 12 f32) into `dst`.
+__device__ __forceinline__ void stage_async(float4* dst,
+                                            const float4* __restrict__ table,
+                                            int win, int window) {
+    const int n = window * 3;
+    const float4* src = table + static_cast<size_t>(win) * n;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) cp_async16(dst + i, src + i);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void stage_wait() {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Four consecutive samples of one block, as they come from the streams.
+template <bool kQ8>
+struct Samples;
+
+template <>
+struct Samples<false> {  // compact: rows lc, wx1, wy1, then tps
+    float4 lc, x1, y1, tp;
+
+    __device__ __forceinline__ void load(const void* fields,
+                                         const float* tps, int b, int block,
+                                         int v) {
+        const float4* f = reinterpret_cast<const float4*>(
+            static_cast<const float*>(fields) + static_cast<size_t>(b) * 3 * block);
+        const int q = block >> 2;
+        lc = __ldcs(f + v);
+        x1 = __ldcs(f + q + v);
+        y1 = __ldcs(f + 2 * q + v);
+        tp = __ldcs(reinterpret_cast<const float4*>(
+                        tps + static_cast<size_t>(b) * block) + v);
+    }
+
+    // Sample k's row, pair and fractions; false for a pad.
+    __device__ __forceinline__ bool decode(int k, int window, int* li,
+                                           int* cid, float* wx,
+                                           float* wy) const {
+        // lc = lidx * 128 + cid, an exact integer; a pad's -1 gives lidx -1
+        const int l = static_cast<int>(lane4(lc, k));
+        *li = l >> 7;
+        *cid = l & (kGroup - 1);
+        *wx = lane4(x1, k);
+        *wy = lane4(y1, k);
+        return l >= 0;
+    }
+
+    static __device__ __forceinline__ bool real_block(const void* fields,
+                                                      int b, int block,
+                                                      int window) {
+        return __ldg(static_cast<const float*>(fields) +
+                     static_cast<size_t>(b) * 3 * block) >= 0.0f;
+    }
+};
+
+template <>
+struct Samples<true> {  // q8: one packed word, then tps
+    uint4 g;
+    float4 tp;
+
+    __device__ __forceinline__ void load(const void* fields,
+                                         const float* tps, int b, int block,
+                                         int v) {
+        g = __ldcs(reinterpret_cast<const uint4*>(
+                       static_cast<const uint32_t*>(fields) +
+                       static_cast<size_t>(b) * block) + v);
+        tp = __ldcs(reinterpret_cast<const float4*>(
+                        tps + static_cast<size_t>(b) * block) + v);
+    }
+
+    __device__ __forceinline__ bool decode(int k, int window, int* li,
+                                           int* cid, float* wx,
+                                           float* wy) const {
+        const uint32_t p = lane4(g, k);
+        *li = static_cast<int>(p >> 23);
+        *cid = static_cast<int>((p >> 16) & 0x7Fu);
+        *wx = byte_to_float((p >> 8) & 0xFFu) * kInv255;
+        *wy = byte_to_float(p & 0xFFu) * kInv255;
+        return *li < window;  // pads have lidx = 511
+    }
+
+    static __device__ __forceinline__ bool real_block(const void* fields,
+                                                      int b, int block,
+                                                      int window) {
+        const uint32_t p = __ldg(static_cast<const uint32_t*>(fields) +
+                                 static_cast<size_t>(b) * block);
+        return static_cast<int>(p >> 23) < window;
+    }
+};
+
+// Add one sample a lane into the warp's own pair slots, without atomics:
+// the lanes of one pair (match_any) hand their losses to the lowest of
+// them through `stage`, which adds them in lane order and alone updates
+// the pair's slots.  All 32 lanes call it; lanes with ok false add nothing.
+__device__ __forceinline__ void warp_add(float* wacc, int* wcnt, float* stage,
+                                         int cid, float loss, bool ok) {
+    const int lane = threadIdx.x & 31;
+    const unsigned peers = __match_any_sync(kFull, ok ? cid : kGroup);
+    stage[lane] = loss;
+    __syncwarp();
+    if (ok && lane == __ffs(peers) - 1) {
+        float sum = 0.0f;
+        for (unsigned m = peers; m != 0u; m &= m - 1) {
+            sum += stage[__ffs(m) - 1];
+        }
+        wacc[cid] += sum;
+        wcnt[cid] += __popc(peers);
+    }
+    __syncwarp();
+}
+
+// Score four samples against the staged window `tab` (none unless
+// `live`).  Pads are scored against row 0 and dropped, so that the four
+// rows are read up front and the four samples' arithmetic interleaves.
+template <bool kQ8, bool kPid>
+__device__ __forceinline__ void score4(const Samples<kQ8>& s, bool live,
+                                       const float4* tab, int window,
+                                       const float* __restrict__ palette,
+                                       int n_pal, const float* q255,
+                                       float* wacc, int* wcnt, float* stage) {
+    int li[4], cid[4];
+    float wx[4], wy[4], tp[4], loss[4];
+    bool ok[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        ok[k] = s.decode(k, window, &li[k], &cid[k], &wx[k], &wy[k]) && live;
+        if (!ok[k]) li[k] = 0;
+        tp[k] = lane4(s.tp, k);
+    }
+    if (kPid) {  // the re-bake: point id -> packed target
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            const int pid = static_cast<int>(tp[k]);
+            if (ok[k] && static_cast<unsigned>(pid) >=
+                             static_cast<unsigned>(n_pal)) {
+                __trap();  // a point id outside the palette: not this cloud
+            }
+            tp[k] = __ldg(palette + (ok[k] ? pid : 0));
+        }
+    }
+    // the lerps need no target: they cover the palette loads' latency
+    float rgb[4][3];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        const float4* row = tab + li[k] * 3;
+        const float4 a = row[0], b = row[1], c = row[2];
+        const float v[kTexels] = {a.x, a.y, a.z, a.w, b.x, b.y,
+                                  b.z, b.w, c.x, c.y, c.z, c.w};
+        ok[k] = lerp_texels(v, wx[k], wy[k], rgb[k]) && ok[k];
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        float tr, tg, tb;
+        unpack_target(tp[k], q255, &tr, &tg, &tb);
+        loss[k] = target_loss(rgb[k], tr, tg, tb);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        warp_add(wacc, wcnt, stage, cid[k], loss[k], ok[k]);
+    }
+}
+
+// A CTA's walk over the plan: chunks blockIdx.x, blockIdx.x + gridDim.x,
+// ... of `chunk` consecutive blocks, and in each the blocks whose slot 0
+// is real.  One probe (a lane a block, one ballot) covers the CTA's next
+// 32 / chunk chunks.  Every thread of the CTA holds the same state.
+template <bool kQ8>
+struct Walker {
+    const void* fields;
+    const int* windows;
+    int nb, block, window, chunk, n_chunks;
+    int c;             // first chunk of the current probe
+    unsigned mask;     // its real blocks not yet returned
+    int lane_win;      // lane l: the window of the block it probed
+
+    __device__ __forceinline__ int lane_block(int lane) const {
+        return (c + lane / chunk * static_cast<int>(gridDim.x)) * chunk +
+               lane % chunk;
+    }
+
+    __device__ __forceinline__ void probe() {
+        const int lane = threadIdx.x & 31;
+        const int b = lane_block(lane);
+        bool real = false;
+        lane_win = 0;
+        if (lane < 32 / chunk * chunk && b < nb) {
+            real = Samples<kQ8>::real_block(fields, b, block, window);
+            lane_win = __ldg(windows + b);
+        }
+        mask = __ballot_sync(kFull, real);
+    }
+
+    // The next block with a real sample, or -1 past the end; *win is its
+    // table window.
+    __device__ __forceinline__ int next(int* win) {
+        while (mask == 0) {
+            c += 32 / chunk * static_cast<int>(gridDim.x);
+            if (c >= n_chunks) return -1;
+            probe();
+        }
+        const int bit = __ffs(mask) - 1;
+        mask &= mask - 1;
+        *win = __shfl_sync(kFull, lane_win, bit);
+        return lane_block(bit);
+    }
+};
+
+template <bool kQ8, bool kPid>
+__global__ void __launch_bounds__(kSumThreads)
+slab_sums_kernel(const float4* __restrict__ table,
+                 const void* __restrict__ fields,
+                 const float* __restrict__ tps,
+                 const float* __restrict__ palette, int n_pal,
+                 const int* __restrict__ windows,
+                 float* __restrict__ partials, int nb, int block, int window,
+                 int chunk) {
+    // two windows, then per warp its pair slots and a stage, then q255
+    extern __shared__ float4 smem4[];
+    const int wsize = window * 3;      // float4s in one staged window
+    const int warp = threadIdx.x >> 5;
+    float* acc = reinterpret_cast<float*>(smem4 + 2 * wsize);
+    int* cnt = reinterpret_cast<int*>(acc + kWarps * kGroup);
+    float* stage = reinterpret_cast<float*>(cnt + kWarps * kGroup);
+    float* q255 = stage + kWarps * 32;
+    float* wacc = acc + warp * kGroup;
+    int* wcnt = cnt + warp * kGroup;
+    for (int i = threadIdx.x; i < kWarps * kGroup; i += blockDim.x) {
+        acc[i] = 0.0f;
+        cnt[i] = 0;
+    }
+    for (int i = threadIdx.x; i < 256; i += blockDim.x) {
+        q255[i] = __fdiv_rn(static_cast<float>(i), 255.0f);
+    }
+
+    Walker<kQ8> walk{fields, windows, nb, block, window, chunk,
+                     (nb + chunk - 1) / chunk,
+                     static_cast<int>(blockIdx.x) -
+                         32 / chunk * static_cast<int>(gridDim.x),
+                     0u, 0};
+    const int nvec = block >> 2;
+    const int v0 = threadIdx.x;
+    int win = 0;
+    int cur = walk.next(&win);
+    int buf = 0;
+    Samples<kQ8> pre;
+    if (cur >= 0) {
+        stage_async(smem4, table, win, window);
+        if (v0 < nvec) pre.load(fields, tps, cur, block, v0);
+    }
+    while (cur >= 0) {
+        stage_wait();
+        // the window is in; every thread is done with the previous block,
+        // so the other buffer is free
+        __syncthreads();
+        int nwin = win;
+        const int nxt = walk.next(&nwin);
+        int nbuf = buf;
+        if (nxt >= 0 && nwin != win) {
+            nbuf = buf ^ 1;
+            stage_async(smem4 + nbuf * wsize, table, nwin, window);
+        }
+        Samples<kQ8> now = pre;
+        if (nxt >= 0 && v0 < nvec) pre.load(fields, tps, nxt, block, v0);
+        const float4* tab = smem4 + buf * wsize;
+        // every lane takes part in each round (the warp's adds are
+        // collective); lanes past the block's end add nothing
+        for (int v = v0; v - v0 < nvec; v += blockDim.x) {
+            const bool live = v < nvec;
+            if (v != v0 && live) now.load(fields, tps, cur, block, v);
+            score4<kQ8, kPid>(now, live, tab, window, palette, n_pal, q255,
+                              wacc, wcnt, stage + warp * 32);
+        }
+        cur = nxt;
+        win = nwin;
+        buf = nbuf;
+    }
+    __syncthreads();
+    float* o = partials + static_cast<size_t>(blockIdx.x) * 2 * kGroup;
+    for (int i = threadIdx.x; i < kGroup; i += blockDim.x) {
+        float a = 0.0f;
+        int n = 0;
+        for (int w = 0; w < kWarps; ++w) {  // in warp order
+            a += acc[w * kGroup + i];
+            n += cnt[w * kGroup + i];
+        }
+        o[i] = a;
+        o[kGroup + i] = static_cast<float>(n);
+    }
+}
+
+using SumsKernel = void (*)(const float4*, const void*, const float*,
+                            const float*, int, const int*, float*, int, int,
+                            int, int);
+
+SumsKernel sums_kernel(int quant, int pid) {
+    if (quant) {
+        return pid ? slab_sums_kernel<true, true> : slab_sums_kernel<true, false>;
+    }
+    return pid ? slab_sums_kernel<false, true> : slab_sums_kernel<false, false>;
+}
+
+size_t sums_smem_bytes(int window) {
+    return (static_cast<size_t>(window) * kTexels * 2 +
+            kWarps * (2 * kGroup + 32) + 256) *
+           sizeof(float);
+}
+
+// Allow the kernel the shared memory of `window` (above 48 KB only on
+// request).
+cudaError_t allow_smem(SumsKernel kernel, int window) {
+    const size_t smem = sums_smem_bytes(window);
+    if (smem <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(smem));
 }
 
 }  // namespace
@@ -214,28 +546,45 @@ extern "C" int slab_partials_launch(const void* table, const void* fields,
     return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int slab_partials_compact_launch(const void* table,
-                                            const void* fields,
-                                            const void* tps,
-                                            const void* windows, void* out,
-                                            int nb, int block, int window,
-                                            void* stream) {
-    slab_partials_compact_kernel<<<nb, kThreads, smem_bytes(window),
-                                   static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(table), static_cast<const float*>(fields),
-        static_cast<const float*>(tps), static_cast<const int*>(windows),
-        static_cast<float*>(out), block, window);
-    return static_cast<int>(cudaGetLastError());
+// Resident CTAs of the group-sum kernel on the current device (SMs times
+// CTAs an SM holds at this window); 0 when it cannot stage the window.
+extern "C" int slab_sums_max_ctas(int quant, int pid, int window, int* ctas) {
+    *ctas = 0;
+    const SumsKernel kernel = sums_kernel(quant, pid);
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (err == cudaSuccess) err = allow_smem(kernel, window);
+    if (err == cudaSuccess) {
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, kernel, kSumThreads, sums_smem_bytes(window));
+    }
+    if (err != cudaSuccess) {
+        cudaGetLastError();  // leave no sticky error for the caller
+        return static_cast<int>(err);
+    }
+    *ctas = sms * per_sm;
+    return 0;
 }
 
-extern "C" int slab_partials_q8_launch(const void* table, const void* fields,
-                                       const void* tps, const void* windows,
-                                       void* out, int nb, int block,
-                                       int window, void* stream) {
-    slab_partials_q8_kernel<<<nb, kThreads, smem_bytes(window),
-                              static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(table), static_cast<const int*>(fields),
-        static_cast<const float*>(tps), static_cast<const int*>(windows),
-        static_cast<float*>(out), block, window);
+// Group sums of a compact (quant = 0) or q8 (quant = 1) plan group into
+// partials (n_cta, 2, 128); with a palette the tps stream holds point ids.
+extern "C" int slab_sums_launch(int quant, const void* table,
+                                const void* fields, const void* tps,
+                                const void* palette, int n_pal,
+                                const void* windows, void* partials, int n_cta,
+                                int nb, int block, int window, int chunk,
+                                void* stream) {
+    const SumsKernel kernel = sums_kernel(quant, palette != nullptr);
+    const cudaError_t err = allow_smem(kernel, window);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<n_cta, kSumThreads, sums_smem_bytes(window),
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float4*>(table), fields,
+        static_cast<const float*>(tps), static_cast<const float*>(palette),
+        n_pal, static_cast<const int*>(windows), static_cast<float*>(partials),
+        nb, block, window, chunk);
     return static_cast<int>(cudaGetLastError());
 }

@@ -6,8 +6,10 @@ so the plan computes every (pair, point) -> (table row, bilinear fractions)
 once, sorts each 128-pair group's samples by table row and pads them into
 blocks that each lie inside one aligned table window.  Per query, a CUDA
 kernel of ``csrc/slab_sampling.cu`` scores every block against its window
-of the packed sampling table; a ``*_plain`` function beside each wrapper is
-the same function in plain PyTorch.
+of the packed sampling table: per-block partials for f32 plans, the
+group's sums in one launch for compact and q8 plans (re-baking targets from
+point ids itself).  A ``*_plain`` function beside each wrapper is the same
+function in plain PyTorch.
 
 The plans keep the JAX package's stream layouts, so plans compare field for
 field and a JAX-built plan runs here unchanged
@@ -47,10 +49,12 @@ __all__ = [
     "slab_table",
     "slab_block_partials",
     "slab_block_partials_plain",
-    "slab_block_partials_compact",
     "slab_block_partials_compact_plain",
-    "slab_block_partials_q8",
     "slab_block_partials_q8_plain",
+    "slab_group_sums_compact",
+    "slab_group_sums_compact_plain",
+    "slab_group_sums_q8",
+    "slab_group_sums_q8_plain",
     "slab_group_partials",
     "slab_pair_scores",
     "plan_required_blocks",
@@ -514,23 +518,78 @@ def slab_block_partials_q8_plain(table: torch.Tensor, fields: torch.Tensor,
                            _unpack_targets(tps[:, 0]), cid, li < window)
 
 
+def _group_sums_plain(block_partials, table, fields, tps, windows, window,
+                      palette):
+    if palette is not None:
+        tps = palette[tps.to(torch.int64)]
+    out = block_partials(table, fields, tps, windows, window)
+    return out[:, 0].sum(0), out[:, 1].sum(0)
+
+
+def slab_group_sums_compact_plain(table: torch.Tensor, fields: torch.Tensor,
+                                  tps: torch.Tensor, windows: torch.Tensor,
+                                  window: int,
+                                  palette: Optional[torch.Tensor] = None):
+    """(loss_sum, valid_count), each (128,), of a compact plan group: the
+    per-block partials summed over blocks.  With ``palette`` (the packed
+    colours, :func:`pack_rgb24`) ``tps`` holds point ids, and the targets
+    are re-baked by one gather first."""
+    return _group_sums_plain(slab_block_partials_compact_plain, table, fields,
+                             tps, windows, window, palette)
+
+
+def slab_group_sums_q8_plain(table: torch.Tensor, fields: torch.Tensor,
+                             tps: torch.Tensor, windows: torch.Tensor,
+                             window: int,
+                             palette: Optional[torch.Tensor] = None):
+    """:func:`slab_group_sums_compact_plain` of a q8 plan group."""
+    return _group_sums_plain(slab_block_partials_q8_plain, table, fields, tps,
+                             windows, window, palette)
+
+
 # ---- kernel wrappers -----------------------------------------------------
 
 
 @functools.cache
-def _launcher(symbol: str, split_tp: bool):
-    fn = getattr(load_library("slab_sampling"), symbol)
-    fn.argtypes = ([ctypes.c_void_p] * (5 if split_tp else 4)
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
+def _partials_launcher():
+    fn = load_library("slab_sampling").slab_partials_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-_MAX_WINDOW = 1000  # window x 12 f32 + the accumulators within 48 KB smem
+@functools.cache
+def _sums_launcher():
+    fn = load_library("slab_sampling").slab_sums_launch
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
 
 
-def _check(table, fields, tps, windows, window, nf, field_dtype, name):
+@functools.cache
+def _max_ctas(device_index: int, quant: bool, pid: bool, window: int) -> int:
+    """CTAs of the group-sum kernel that the card holds at once."""
+    fn = load_library("slab_sampling").slab_sums_max_ctas
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    ctas = ctypes.c_int(0)
+    with on_device(torch.device("cuda", device_index)):
+        err = fn(int(quant), int(pid), window, ctypes.byref(ctas))
+    if err != 0 or ctas.value == 0:
+        raise ValueError(f"the group-sum kernel cannot stage a window of "
+                         f"{window} rows on this card (CUDA error {err})")
+    return ctas.value
+
+
+_MAX_WINDOW = 1000  # f32 kernel: window x 12 f32 + the accumulators in 48 KB
+_MAX_SUM_WINDOW = 2048  # group sums: two windows + accumulators in 227 KB
+_SUM_CHUNK = 2  # plan blocks a CTA of the group-sum kernel takes at a time
+
+
+def _check(table, fields, tps, windows, window, nf, field_dtype, name,
+           max_window=_MAX_WINDOW, palette=None):
     """Shapes, dtypes and devices of a wrapper call; True when the call
     runs on the card."""
     if table.dim() != 2 or table.shape[1] != 12 or table.shape[0] % window:
@@ -548,38 +607,27 @@ def _check(table, fields, tps, windows, window, nf, field_dtype, name):
             raise ValueError("tps must be (NB, 1, block)")
         tensors.append(tps)
         dtypes.append(torch.float32)
+    if palette is not None:
+        if palette.dim() != 1:
+            raise ValueError("palette must be (N,)")
+        tensors.append(palette)
+        dtypes.append(torch.float32)
     if [t.dtype for t in tensors] != dtypes:
         raise TypeError(f"{name}: need dtypes {dtypes}, got "
                         f"{[t.dtype for t in tensors]}")
     if len({t.device for t in tensors}) != 1:
-        raise ValueError("table, fields, tps and windows must be on one device")
+        raise ValueError("table, fields, tps, palette and windows must be on "
+                         "one device")
     if fields.device.type == "cpu":
         return False
     if fields.device.type != "cuda":
         raise ValueError(f"unsupported device {fields.device}")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("table, fields, tps and windows must be contiguous")
-    if not 0 < window <= _MAX_WINDOW:
-        raise ValueError(f"window must be in (0, {_MAX_WINDOW}]")
+        raise ValueError("table, fields, tps, palette and windows must be "
+                         "contiguous")
+    if not 0 < window <= max_window:
+        raise ValueError(f"window must be in (0, {max_window}]")
     return True
-
-
-def _launch(symbol, table, fields, tps, windows, window, name):
-    nb, _, block = fields.shape
-    out = torch.empty((nb, 2, GROUP), dtype=torch.float32,
-                      device=fields.device)
-    if nb == 0:
-        return out
-    ptrs = [table.data_ptr(), fields.data_ptr()]
-    if tps is not None:
-        ptrs.append(tps.data_ptr())
-    ptrs += [windows.data_ptr(), out.data_ptr()]
-    launch = _launcher(symbol, tps is not None)
-    with on_device(fields.device) as stream:
-        err = launch(*ptrs, nb, block, window, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    return out
 
 
 def slab_block_partials(table: torch.Tensor, fields: torch.Tensor,
@@ -588,45 +636,94 @@ def slab_block_partials(table: torch.Tensor, fields: torch.Tensor,
     if not _check(table, fields, None, windows, window, 8, torch.float32,
                   "slab_block_partials"):
         return slab_block_partials_plain(table, fields, windows, window)
-    out = _launch("slab_partials_launch", table, fields, None, windows,
-                  window, "slab_block_partials")
+    nb, _, block = fields.shape
+    out = torch.empty((nb, 2, GROUP), dtype=torch.float32,
+                      device=fields.device)
+    if nb == 0:
+        return out
+    with on_device(fields.device) as stream:
+        err = _partials_launcher()(table.data_ptr(), fields.data_ptr(),
+                                   windows.data_ptr(), out.data_ptr(), nb,
+                                   block, window, stream)
+    if err != 0:
+        raise RuntimeError(f"slab_block_partials launch failed: CUDA error "
+                           f"{err}")
     slab_block_partials.launches += 1
     return out
 
 
-def slab_block_partials_compact(table: torch.Tensor, fields: torch.Tensor,
-                                tps: torch.Tensor, windows: torch.Tensor,
-                                window: int) -> torch.Tensor:
-    """Kernel wrapper of :func:`slab_block_partials_compact_plain`."""
-    if not _check(table, fields, tps, windows, window, 3, torch.float32,
-                  "slab_block_partials_compact"):
-        return slab_block_partials_compact_plain(table, fields, tps, windows,
-                                                 window)
-    out = _launch("slab_partials_compact_launch", table, fields, tps,
-                  windows, window, "slab_block_partials_compact")
-    slab_block_partials_compact.launches += 1
-    return out
-
-
-def slab_block_partials_q8(table: torch.Tensor, fields: torch.Tensor,
-                           tps: torch.Tensor, windows: torch.Tensor,
-                           window: int) -> torch.Tensor:
-    """Kernel wrapper of :func:`slab_block_partials_q8_plain`."""
-    if window > _Q8_MAX_WINDOW:
+def _group_sums(wrapper, quant: bool, table, fields, tps, windows, window,
+                palette=None, chunk: int = _SUM_CHUNK,
+                ctas: Optional[int] = None):
+    """(loss_sum, valid_count) of one compact or q8 group: the group-sum
+    kernel for CUDA tensors (counted on ``wrapper``), the plain version for
+    CPU ones.  ``chunk`` is the number of consecutive plan blocks a CTA
+    takes at a time and ``ctas`` caps the grid (default: the CTAs the card
+    holds at once)."""
+    if quant and window > _Q8_MAX_WINDOW:
         raise ValueError(f"q8 plans need window <= {_Q8_MAX_WINDOW}")
-    if not _check(table, fields, tps, windows, window, 1, torch.int32,
-                  "slab_block_partials_q8"):
-        return slab_block_partials_q8_plain(table, fields, tps, windows,
-                                            window)
-    out = _launch("slab_partials_q8_launch", table, fields, tps, windows,
-                  window, "slab_block_partials_q8")
-    slab_block_partials_q8.launches += 1
-    return out
+    name = wrapper.__name__
+    if not _check(table, fields, tps, windows, window, 1 if quant else 3,
+                  torch.int32 if quant else torch.float32, name,
+                  _MAX_SUM_WINDOW, palette):
+        plain = slab_group_sums_q8_plain if quant else \
+            slab_group_sums_compact_plain
+        return plain(table, fields, tps, windows, window, palette)
+    nb, _, block = fields.shape
+    if block % 4:
+        raise ValueError(f"{name}: block must be a multiple of 4 (the kernel "
+                         f"reads four samples at a time), got {block}")
+    if not 1 <= chunk <= 32:
+        raise ValueError(f"{name}: chunk must be in [1, 32], got {chunk}")
+    tensors = [table, fields, tps] + ([] if palette is None else [palette])
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: table, fields, tps and palette must be "
+                         "16-byte aligned")
+    if nb == 0:
+        zeros = torch.zeros(GROUP, dtype=torch.float32, device=fields.device)
+        return zeros, zeros.clone()
+    if ctas is None:
+        ctas = _max_ctas(fields.device.index, quant, palette is not None,
+                         window)
+    n_cta = max(1, min(-(-nb // chunk), ctas))
+    partials = torch.empty((n_cta, 2, GROUP), dtype=torch.float32,
+                           device=fields.device)
+    with on_device(fields.device) as stream:
+        err = _sums_launcher()(
+            int(quant), table.data_ptr(), fields.data_ptr(), tps.data_ptr(),
+            None if palette is None else palette.data_ptr(),
+            0 if palette is None else palette.shape[0], windows.data_ptr(),
+            partials.data_ptr(), n_cta, nb, block, window, chunk, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    wrapper.launches += 1
+    sums = partials.sum(0)
+    return sums[0], sums[1]
+
+
+def slab_group_sums_compact(table: torch.Tensor, fields: torch.Tensor,
+                            tps: torch.Tensor, windows: torch.Tensor,
+                            window: int,
+                            palette: Optional[torch.Tensor] = None):
+    """Kernel wrapper of :func:`slab_group_sums_compact_plain`: one launch
+    scores the whole group and, with ``palette``, re-bakes its targets from
+    the point ids in ``tps``.  The point ids must index ``palette``: the
+    kernel traps on one that does not, as an out-of-range gather does."""
+    return _group_sums(slab_group_sums_compact, False, table, fields, tps,
+                       windows, window, palette)
+
+
+def slab_group_sums_q8(table: torch.Tensor, fields: torch.Tensor,
+                       tps: torch.Tensor, windows: torch.Tensor, window: int,
+                       palette: Optional[torch.Tensor] = None):
+    """Kernel wrapper of :func:`slab_group_sums_q8_plain`."""
+    return _group_sums(slab_group_sums_q8, True, table, fields, tps, windows,
+                       window, palette)
 
 
 slab_block_partials.launches = 0
-slab_block_partials_compact.launches = 0
-slab_block_partials_q8.launches = 0
+slab_group_sums_compact.launches = 0
+slab_group_sums_q8.launches = 0
 
 
 def _check_refresh(compact: bool, tp_is_pid: bool, rgb) -> None:
@@ -651,21 +748,17 @@ def slab_group_partials(table: torch.Tensor, fields: torch.Tensor,
 
     ``rgb`` re-bakes the targets from the plan's point ids (per-query
     colour rebinds).  An f32 group is copied with new rgb rows; a compact
-    or q8 group keeps its geometry and only its ``tps`` stream is rebuilt,
-    one gather of the packed colours outside the kernel, as in JAX."""
+    or q8 group keeps its streams, and its kernel looks each target up in
+    the packed palette ``pack_rgb24(rgb)``."""
+    if compact or quant:
+        sums = slab_group_sums_q8 if quant else slab_group_sums_compact
+        return sums(table, fields, tps, windows, window,
+                    None if rgb is None else pack_rgb24(rgb))
     if rgb is not None:
-        if compact or quant:
-            tps = pack_rgb24(rgb)[tps.to(torch.int64)]
-        else:
-            pids = fields[:, _F_PID].to(torch.int64)
-            fields = fields.clone()
-            fields[:, _F_TR:_F_TB + 1] = rgb[pids].permute(0, 2, 1)
-    if quant:
-        out = slab_block_partials_q8(table, fields, tps, windows, window)
-    elif compact:
-        out = slab_block_partials_compact(table, fields, tps, windows, window)
-    else:
-        out = slab_block_partials(table, fields, windows, window)
+        pids = fields[:, _F_PID].to(torch.int64)
+        fields = fields.clone()
+        fields[:, _F_TR:_F_TB + 1] = rgb[pids].permute(0, 2, 1)
+    out = slab_block_partials(table, fields, windows, window)
     return out[:, 0].sum(0), out[:, 1].sum(0)
 
 
@@ -683,11 +776,17 @@ def slab_pair_scores(img: torch.Tensor, plan: GridPlan,
         )
     _check_refresh(plan.compact, plan.tp_is_pid, rgb)
     table = slab_table(img, wrap=plan.wrap, window=plan.window)
-    tps_seq = plan.tps if plan.compact else (None,) * len(plan.fields)
+    if plan.compact:
+        sums = slab_group_sums_q8 if plan.quant else slab_group_sums_compact
+        palette = None if rgb is None else pack_rgb24(rgb)  # once a query
+        group_sums = (sums(table, f, tps, w, plan.window, palette)
+                      for f, w, tps in zip(plan.fields, plan.windows,
+                                           plan.tps))
+    else:
+        group_sums = (slab_group_partials(table, f, w, plan.window, rgb)
+                      for f, w in zip(plan.fields, plan.windows))
     scores = []
-    for fields, windows, tps in zip(plan.fields, plan.windows, tps_seq):
-        tot, cnt = slab_group_partials(table, fields, windows, plan.window,
-                                       rgb, tps, plan.compact, plan.quant)
+    for tot, cnt in group_sums:
         mean = tot / cnt.clamp_min(1.0)
         scores.append(torch.where(cnt > 0, mean,
                                   torch.full_like(mean, float("inf"))))

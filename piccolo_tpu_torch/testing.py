@@ -26,7 +26,7 @@ from .ops.rotation import rot_from_ypr
 
 __all__ = ["make_room", "random_pose_inside", "render_at", "RoomScene",
            "make_scene", "scene_pose", "scene_cloud", "raycast_pano",
-           "write_synth_stanford"]
+           "write_synth_stanford", "edge_plan_group"]
 
 _WALL_FACES = ((0, 1), (0, -1), (1, 1), (1, -1), (2, 1), (2, -1))
 
@@ -444,3 +444,40 @@ def write_synth_stanford(root: str, rooms: int = 1, queries: int = 3,
             os.makedirs(os.path.dirname(pose_path), exist_ok=True)
             with open(pose_path, "w") as f:
                 json.dump(pose, f)
+
+
+def edge_plan_group(rng: np.random.Generator, specs, block: int, window: int,
+                    n_points: int, quant: bool = False, device="cpu"):
+    """One hand-built compact (or, with ``quant``, q8) plan group for the
+    slab kernels' edge cases.
+
+    ``specs[b] = (table window, real samples)`` of block b.  The real
+    samples sit at the head of the block, as the plan builders put them, so
+    a block with none holds only pads.  They draw their row, pair, 8-bit
+    fractions and point id from ``rng``; each block's first sample has row
+    ``window - 1`` and pair 127.  Returns (fields, windows, tps holding the
+    point ids as f32; pads 0)."""
+    nb = len(specs)
+    li = rng.integers(0, window, (nb, block))
+    cid = rng.integers(0, 128, (nb, block))
+    li[:, 0] = window - 1
+    cid[:, 0] = 127
+    wx = rng.integers(0, 256, (nb, block))
+    wy = rng.integers(0, 256, (nb, block))
+    pid = rng.integers(0, n_points, (nb, block))
+    n_real = np.array([n for _, n in specs], np.int64).reshape(nb)
+    real = np.arange(block)[None] < n_real[:, None]
+    if quant:
+        g = (li << 23) | (cid << 16) | (wx << 8) | wy
+        g = np.where(real, g, 511 << 23).astype(np.uint32).view(np.int32)
+        fields = g[:, None]
+    else:
+        fields = np.stack([np.where(real, li * 128 + cid, -1),
+                           np.where(real, wx / 255.0, 0.0),
+                           np.where(real, wy / 255.0, 0.0)], 1)
+        fields = fields.astype(np.float32)
+    tps = np.where(real, pid, 0).astype(np.float32)[:, None]
+    windows = np.array([w for w, _ in specs], np.int32).reshape(nb)
+    dev = resolve_device(device)
+    return (torch.tensor(fields, device=dev), torch.tensor(windows, device=dev),
+            torch.tensor(tps, device=dev))

@@ -5,7 +5,8 @@ Run them on the card with
 ``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda``
 (``tests/conftest.py`` imports jax).  Histograms are bit-exact; slab counts
 are exact and sums agree within rtol 1e-5 (the kernels add floats with
-atomics, in no fixed order).  The two tests of launches on a card that is
+atomics, in no fixed order).  The compact and q8 group-sum kernels are also
+held on hand-built edge plans, fused and unfused.  The two tests of launches on a card that is
 not the current one need two cards.
 """
 
@@ -79,6 +80,18 @@ def test_masked_histogram_kernel_bit_exact(dev, N):
     assert torch.equal(got, masked_histogram_counts_plain(ids, mask))
 
 
+SUMS = {"compact": (slab.slab_group_sums_compact,
+                    slab.slab_group_sums_compact_plain),
+        "q8": (slab.slab_group_sums_q8, slab.slab_group_sums_q8_plain)}
+
+
+def _assert_sums(got, want):
+    """Counts exact; sums rtol 1e-5 (the kernel adds floats with atomics, in
+    no fixed order)."""
+    assert torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+
+
 @pytest.mark.parametrize("layout", ["compact", "q8"])
 def test_slab_layout_kernels_match_plain(dev, layout):
     rng = np.random.default_rng(4)
@@ -92,21 +105,65 @@ def test_slab_layout_kernels_match_plain(dev, layout):
                                 compact=True, tp_is_pid=True,
                                 quant=layout == "q8", device=dev)
     table = slab.slab_table(img, window=plan.window)
-    kernel, plain = {
-        "compact": (slab.slab_block_partials_compact,
-                    slab.slab_block_partials_compact_plain),
-        "q8": (slab.slab_block_partials_q8, slab.slab_block_partials_q8_plain),
-    }[layout]
-    rgb_t = torch.tensor(rgb, device=dev)
+    kernel, plain = SUMS[layout]
+    palette = slab.pack_rgb24(torch.tensor(rgb, device=dev))
     for f, w, tp in zip(plan.fields, plan.windows, plan.tps):
-        tps = slab.pack_rgb24(rgb_t)[tp.to(torch.int64)]  # the re-bake
-        n0 = kernel.launches
-        got = kernel(table, f, tps, w, plan.window)
-        want = plain(table, f, tps, w, plan.window)
-        torch.cuda.synchronize()
-        assert kernel.launches == n0 + 1
-        assert torch.equal(got[:, 1], want[:, 1])
-        torch.testing.assert_close(got[:, 0], want[:, 0], rtol=1e-5, atol=1e-6)
+        tps = palette[tp.to(torch.int64)]  # the re-bake as a gather
+        for args in ((tp, palette), (tps, None)):  # fused, then unfused
+            n0 = kernel.launches
+            got = kernel(table, f, args[0], w, plan.window, args[1])
+            want = plain(table, f, args[0], w, plan.window, args[1])
+            torch.cuda.synchronize()
+            assert kernel.launches == n0 + 1
+            _assert_sums(got, want)
+
+
+def _edge_cases(block):
+    """Per-block (window, real samples) specs of hand-built plan groups."""
+    return {
+        "all pad": [(0, 0)] * 37,
+        # one window over 27 blocks: across chunks of 8 and CTAs
+        "long run": [(0, 0)] * 3 + [(2, block)] * 26 + [(2, 5)] + [(0, 0)] * 9,
+        "alternating": [(b % 2, block - 3 * b) for b in range(21)],
+        # nb = 37 is no multiple of the CTA counts below
+        "mixed": ([(1, block)] * 9 + [(3, 1)] + [(0, 0)] * 2
+                  + [(b % 3, block // 2) for b in range(20)] + [(3, 0)] * 5),
+    }
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("window,block", [(128, 1024), (256, 512)])
+@pytest.mark.parametrize("layout", ["compact", "q8"])
+def test_slab_sums_kernels_on_edge_plans(dev, layout, window, block, fused):
+    """Pad-only blocks, a window run across chunk and CTA boundaries,
+    alternating windows, row window - 1 and pair 127 in every block,
+    pure-black table rows, several grids and chunk sizes."""
+    from piccolo_tpu_torch.testing import edge_plan_group
+
+    rng = np.random.default_rng(window + block + fused)
+    n_points = 3000
+    table = torch.rand((4 * window, 12), generator=torch.Generator().manual_seed(
+        window), dtype=torch.float32)
+    table[::7] = 0.0  # pure-black rows
+    table[window - 1::window][1::2] = 0.0  # black last rows
+    table = table.to(dev)
+    palette = slab.pack_rgb24(torch.rand((n_points, 3), device=dev))
+    kernel, plain = SUMS[layout]
+    for name, specs in _edge_cases(block).items():
+        f, w, pids = edge_plan_group(rng, specs, block, window, n_points,
+                                     quant=layout == "q8", device=dev)
+        tps, pal = (pids, palette) if fused else (
+            palette[pids.to(torch.int64)], None)
+        want = plain(table, f, tps, w, window, pal)
+        for chunk, ctas in ((8, None), (8, 3), (1, 4), (32, 1), (5, 2)):
+            got = slab._group_sums(kernel, layout == "q8", table, f, tps, w,
+                                   window, pal, chunk=chunk, ctas=ctas)
+            torch.cuda.synchronize()
+            _assert_sums(got, want)
+        if name == "all pad":
+            assert int(want[1].sum()) == 0
+        else:
+            assert want[1][127] > 0
 
 
 @pytest.fixture
@@ -168,11 +225,11 @@ def test_cli_device_index_runs_on_that_card(two_cards, tmp_path):
     winners = []
     for i in (0, 1):
         log = str(tmp_path / f"log{i}")
-        n0 = slab.slab_block_partials_q8.launches
+        n0 = slab.slab_group_sums_q8.launches
         tmain(["--config", config, "--log", log, "--no-tensorboard",
                "--override", f"data_root={root},device_index={i},"
                "slab_init=True,slab_quant=True,num_iter=20"])
-        assert slab.slab_block_partials_q8.launches > n0
+        assert slab.slab_group_sums_q8.launches > n0
         with open(os.path.join(log, "stanford_results.csv")) as f:
             rows = list(csv.reader(f))[1:]
         winners.append(np.array([[float(v) for v in r[5].split()]

@@ -116,8 +116,8 @@ def test_plain_scorers_match_jax_kernels(scene, layout, refresh):
         np.testing.assert_allclose(tot.numpy(), np.asarray(want_tot),
                                    rtol=1e-5, atol=1e-6)
     # CPU tensors: the plain versions ran, no kernel launched
-    assert tslab.slab_block_partials_compact.launches == 0
-    assert tslab.slab_block_partials_q8.launches == 0
+    assert tslab.slab_group_sums_compact.launches == 0
+    assert tslab.slab_group_sums_q8.launches == 0
 
 
 @pytest.mark.parametrize("refresh", [False, True])
