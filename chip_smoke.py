@@ -12,26 +12,29 @@ Phases (any failure exits non-zero; each prints its seconds):
      to 65,536; 50 translations x 8 yaws; 1024x512 main / 512x256 init
      images) and its slab GridPlan and HistPlan, built on the card;
   4. kernels vs their plain PyTorch versions at the main path's shapes
-     (f32 slab counts exact and sums rtol 1e-5; block histogram
-     bit-exact), with CUDA-event timings, the bound and the one-call
-     yardstick;
+     (the f32 group-sum kernel on every group of the room's plan, counts
+     exact and sums rtol 1e-5; block histogram bit-exact), with CUDA-event
+     timings, the bound and the one-call yardstick;
   5. a small room on the card against the same query on the CPU;
   6. the library's main path: 1 warm-up and 5 timed queries through
      localize_query; median t_err must be below 0.05 m and both kernels
-     must have launched;
+     (slab_group_sums_f32, block_histogram) must have launched;
   7. one more query under torch.profiler: device time per stage, the idle
      share and the heaviest kernels;
   8. the CLI's room: a ray-cast Stanford tree (1 room, 4 queries, 60,000
      points, 1024x512 panoramas) in a temporary directory, loaded as the
      CLI loads it under configs/stanford.ini;
   9. the layout kernels at the CLI's shapes: a compact and a q8 plan with
-     point ids (the re-bake path) from the CLI's room and grids, each
-     group-sum kernel against its plain version on every group with the
-     first query's init image, re-bake fused and unfused (counts exact,
-     sums rtol 1e-5), group 0 timed against the recounted bound and PR 2's;
-     stage 1 of a query (slab_pair_scores, all groups) with the fused
-     re-bake against the re-bake as a separate gather, in turns; and the
-     masked histogram at N = 524,288 and 3,001 (bit-exact), timed;
+     point ids (the re-bake path) and an f32 plan (run D's) from the CLI's
+     room and grids, each group-sum kernel against its plain version on
+     every group with the first query's init image and colours, re-bake
+     fused and unfused (counts exact, sums rtol 1e-5), group 0 timed
+     against the recounted bound and the per-block count; stage 1 of a query
+     (slab_pair_scores, all groups) with the fused re-bake against the
+     re-bake as a separate gather (f32: into a copy of each group), in
+     turns; and the masked histogram at N = 8,388,608, 524,288 and 3,001
+     (bit-exact on 0/1 masks, the same bits twice on a random mask), timed
+     beside an empty kernel;
  10. eight in-process runs of ``piccolo_tpu_torch.main`` on that tree with
      configs/stanford.ini:
        A  the shipped config (the ladder's own route),
@@ -47,7 +50,8 @@ Phases (any failure exits non-zero; each prints its seconds):
           gather-engine tail, built on a background thread while the
           first query runs the gather engine;
      each must reach median t_err < 0.05 m and accuracy >= 0.75 and
-     launch its kernel on every query that has a plan; B and C must give
+     launch its kernel on every query that has a plan (run D: the f32
+     kernel once a group, 9 times a query); B and C must give
      A's winners, B' B's, E D's, and F and G E's, within 1e-3 m;
 then one JSON line of kernel measurements (launches from the CLI run that
 drives each kernel) and, last, the device line.
@@ -196,6 +200,34 @@ def _bound(nbytes, ops):
                                        else "operations")
 
 
+# per real sample: 4 weights (6 ops), lerp (24), black test, distance and
+# square sum (9), sqrt, two adds: ~42 f32 operations
+F32_OPS_PER_SAMPLE = 42
+
+
+def _f32_plan_stats(f, w):
+    """Real samples, pad slots, blocks whose slot 0 is a pad and distinct
+    windows of one f32 plan group."""
+    real = (f[:, 0] >= 0) & (f[:, 6] >= 0)
+    samples = int(real.sum())
+    return (samples, f.shape[0] * f.shape[2] - samples,
+            int((~real[:, 0]).sum()), int(torch.unique(w).numel()))
+
+
+def _f32_bytes(samples, pads, nb, n_win, window, n_colours=0):
+    """The bytes an f32 group's sums must move, recounted: 28 B a real
+    sample (20 B and the (N, 3) colours once when the kernel re-bakes), a
+    4 B probe a block, each distinct table window once, the windows and the
+    (2, 128) sums; and the per-block count, kept for continuity: 8 B a pad
+    slot and (nb, 2, 128) per-block partials."""
+    per = 20 if n_colours else 28
+    recounted = (samples * per + n_colours * 12 + nb * 4 + n_win * window * 48
+                 + nb * 4 + 2 * 128 * 4)
+    per_block = (samples * 28 + pads * 8 + n_win * window * 48 + nb * 4
+                 + nb * 2 * 128 * 4)
+    return recounted, per_block
+
+
 def phase_kernels(room, dev):
     from piccolo_tpu_torch.kernels import slab_sampling as slab
     from piccolo_tpu_torch.kernels.block_histogram import (
@@ -206,43 +238,38 @@ def phase_kernels(room, dev):
     plan = room["plan"]
     _, _, img_init, _ = _query_images(100, room["xyz"], room["rgb"], dev)
     table = slab.slab_table(img_init, window=plan.window)
+    slab_err = 0.0
+    for g, (f, w) in enumerate(zip(plan.fields, plan.windows)):
+        got = slab.slab_group_sums_f32(table, f, w, plan.window)
+        want = slab.slab_group_sums_f32_plain(table, f, w, plan.window)
+        torch.cuda.synchronize()
+        if not torch.equal(got[1], want[1]):
+            raise AssertionError(f"f32 slab kernel counts differ from the "
+                                 f"plain version in group {g}")
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+        slab_err = max(slab_err, float((got[0] - want[0]).abs().max()))
     f, w = plan.fields[0], plan.windows[0]
-    got = slab.slab_block_partials(table, f, w, plan.window)
-    want = slab.slab_block_partials_plain(table, f, w, plan.window)
-    torch.cuda.synchronize()
-    if not torch.equal(got[:, 1], want[:, 1]):
-        raise AssertionError("slab kernel counts differ from the plain version")
-    torch.testing.assert_close(got[:, 0], want[:, 0], rtol=1e-5, atol=1e-6)
-    slab_err = float((got[:, 0] - want[:, 0]).abs().max())
     nb, _, block = f.shape
-    real = (f[:, 0] >= 0) & (f[:, 6] >= 0)
-    samples = int(real.sum())
-    pads = nb * block - samples
-    pad_blocks = int((~real).all(dim=1).sum())
-    n_win = int(torch.unique(w).numel())
-    # the bytes the kernel must touch: 7 fields (28 B) of a real sample,
-    # lidx and cid (8 B) of a pad slot, each distinct table window once,
-    # the windows and the (nb, 2, 128) partials; pid is never read
-    slab_bytes = (samples * 28 + pads * 8 + n_win * plan.window * 12 * 4
-                  + nb * 4 + nb * 2 * 128 * 4)
-    # per real sample: 4 weights (6 ops), lerp (24), black test, distance
-    # and square sum (9), sqrt, two adds: ~42 f32 operations
-    slab_bound, slab_by = _bound(slab_bytes, samples * 42)
+    samples, pads, pad_blocks, n_win = _f32_plan_stats(f, w)
+    nbytes, nbytes_blk = _f32_bytes(samples, pads, nb, n_win, plan.window)
+    slab_bound, slab_by = _bound(nbytes, samples * F32_OPS_PER_SAMPLE)
+    bound_blk, _ = _bound(nbytes_blk, samples * F32_OPS_PER_SAMPLE)
     slab_row = dict(
-        name="slab_block_partials", route="cuda",
+        name="slab_group_sums_f32", route="cuda",
         source="piccolo_tpu_torch/kernels/csrc/slab_sampling.cu",
         replaces="piccolo_tpu/kernels/slab_sampling.py:677",
         max_abs_err=slab_err,
-        ms=cuda_ms(lambda: slab.slab_block_partials(table, f, w, plan.window)),
-        plain_ms=cuda_ms(lambda: slab.slab_block_partials_plain(
+        ms=cuda_ms(lambda: slab.slab_group_sums_f32(table, f, w, plan.window)),
+        plain_ms=cuda_ms(lambda: slab.slab_group_sums_f32_plain(
             table, f, w, plan.window)),
         bound_ms=slab_bound, bound_by=slab_by, library_ms=None,
     )
-    log(f"slab kernel vs plain (one group, nb={nb}, block={block}, "
-        f"{samples} real samples, {pads} pad slots, {pad_blocks} blocks all "
-        f"pad, {n_win} distinct windows): counts exact, max |sum err| "
-        f"{slab_err:.3g}")
-    log(f"slab bound: {slab_bytes} B needed; the whole group is "
+    log(f"f32 slab kernel vs plain on all {len(plan.fields)} groups: counts "
+        f"exact, max |sum err| {slab_err:.3g}; group 0 (nb={nb}, "
+        f"block={block}, {samples} real samples, {pads} pad slots, "
+        f"{pad_blocks} blocks with a pad slot 0, {n_win} distinct windows): "
+        f"bound {slab_bound:.4f} ms ({nbytes} B recounted), {bound_blk:.4f} "
+        f"ms by the per-block count ({nbytes_blk} B); the group is "
         f"{f.numel() * 4 + w.numel() * 4} B of plan")
 
     g = torch.Generator(device="cpu").manual_seed(0)
@@ -324,18 +351,34 @@ def phase_cli_room(dev, tmp):
                 n_pairs=n_pairs, groups=-(-n_pairs // 128), est=est)
 
 
+def _f32_rebaked(fields, rgb):
+    """A copy of an f32 plan group with its r, g and b rows re-baked from
+    the colours by one gather: the route of f32 plans before the kernel
+    took the colours."""
+    out = fields.clone()
+    out[:, 3:6] = rgb[fields[:, 7].to(torch.int64)].permute(0, 2, 1)
+    return out
+
+
 def _unfused_pair_scores(img, plan, rgb):
     """slab_pair_scores with the per-query re-bake done as a separate gather
-    in every group (the route before the kernel took the palette): phase
-    9's yardstick for the fused stage 1."""
+    in every group (the route before the kernel took the colours): phase
+    9's yardstick for the fused stage 1.  An f32 group is copied with new
+    r, g and b rows, a compact or q8 group gets a new packed target
+    stream."""
     from piccolo_tpu_torch.kernels import slab_sampling as slab
 
     table = slab.slab_table(img, wrap=plan.wrap, window=plan.window)
-    sums = slab.slab_group_sums_q8 if plan.quant else slab.slab_group_sums_compact
     scores = []
-    for f, w, tp in zip(plan.fields, plan.windows, plan.tps):
-        tps = slab.pack_rgb24(rgb)[tp.to(torch.int64)]
-        tot, cnt = sums(table, f, tps, w, plan.window)
+    for g, (f, w) in enumerate(zip(plan.fields, plan.windows)):
+        if plan.compact:
+            sums = (slab.slab_group_sums_q8 if plan.quant
+                    else slab.slab_group_sums_compact)
+            tps = slab.pack_rgb24(rgb)[plan.tps[g].to(torch.int64)]
+            tot, cnt = sums(table, f, tps, w, plan.window)
+        else:
+            tot, cnt = slab.slab_group_sums_f32(table, _f32_rebaked(f, rgb), w,
+                                                plan.window)
         mean = tot / cnt.clamp_min(1.0)
         scores.append(torch.where(cnt > 0, mean,
                                   torch.full_like(mean, float("inf"))))
@@ -363,19 +406,15 @@ def cuda_ms_turns(fns, reps=20):
 
 
 def phase_layout_kernels(cli, dev):
-    """The compact and q8 group-sum kernels at the CLI's shapes, and the
-    masked histogram, against their plain versions, timed.  The plans are
+    """The group-sum kernels at the CLI's shapes, and the masked histogram,
+    against their plain versions, timed.  The compact and q8 plans are
     built as the CLI's forced runs B and C build them (point ids, for the
     sharpen_color re-bake) from the CLI's room and grids, and every group
     is scored with the first query's init image and colours, with the
     re-bake fused (palette) and unfused (re-baked targets).  Then stage 1
     of a query, slab_pair_scores over all 9 groups, fused against unfused
-    in turns."""
+    in turns.  The same for an f32 plan (phase_f32_cli_shapes)."""
     from piccolo_tpu_torch.kernels import slab_sampling as slab
-    from piccolo_tpu_torch.kernels.histogram import (
-        masked_histogram_counts,
-        masked_histogram_counts_plain,
-    )
 
     grids = cli["grids"]
     img = torch.as_tensor(cli["img_init"], device=dev)
@@ -436,12 +475,12 @@ def phase_layout_kernels(cli, dev):
         # re-bakes) and the (2, 128) sums
         nbytes = (samples * per_real + nb * 4 + n_win * plan.window * 48
                   + nb * 4 + palette.numel() * 4 + 2 * 128 * 4)
-        # PR 2's count, kept for continuity: a pad slot's first field and
-        # per-block partials
-        nbytes_pr2 = (samples * per_real + pads * 4
+        # the per-block count, kept for continuity: a pad slot's first field
+        # and per-block partials
+        nbytes_blk = (samples * per_real + pads * 4
                       + n_win * plan.window * 48 + nb * 4 + nb * 2 * 128 * 4)
         bound_ms, bound_by = _bound(nbytes, samples * ops_per)
-        bound_pr2, _ = _bound(nbytes_pr2, samples * ops_per)
+        bound_blk, _ = _bound(nbytes_blk, samples * ops_per)
         ms = cuda_ms(lambda: kernel(table, f, tp, w, plan.window, palette))
         ms_unfused = cuda_ms(lambda: kernel(table, f, rebaked, w, plan.window))
         rows.append(dict(
@@ -458,7 +497,7 @@ def phase_layout_kernels(cli, dev):
             f"{pads} pad slots, {pad_blocks} blocks with a pad slot 0, "
             f"{n_win} distinct windows): fused {ms:.4f} ms, unfused "
             f"{ms_unfused:.4f} ms; bound {bound_ms:.4f} ms ({nbytes} B "
-            f"recounted), {bound_pr2:.4f} ms by PR 2's count ({nbytes_pr2} B)")
+            f"recounted), {bound_blk:.4f} ms by the per-block count ({nbytes_blk} B)")
         # stage 1 of a query as slab_pair_scores runs it, all groups
         fused_q, unfused_q = cuda_ms_turns([
             lambda: slab.slab_pair_scores(img, plan, rgb),
@@ -470,37 +509,135 @@ def phase_layout_kernels(cli, dev):
             f"slab_pair_scores): fused re-bake {fused_q:.4f} ms, re-bake as "
             f"a separate gather {unfused_q:.4f} ms")
         del plan, table, f, w, tp, rebaked
-
-    g = torch.Generator(device="cpu").manual_seed(1)
-    for n in (524288, 3001):
-        ids = torch.randint(-3, 530, (n,), generator=g,
-                            dtype=torch.int32).to(dev)
-        mask = (torch.rand((n,), generator=g) < 0.7).to(torch.float32).to(dev)
-        got = masked_histogram_counts(ids, mask)
-        want = masked_histogram_counts_plain(ids, mask)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"masked histogram differs at N={n}")
-        log(f"masked histogram vs plain at N={n}: bit-exact")
-    n = 524288  # a 1024x512 image
-    ids = torch.randint(0, 512, (n,), generator=g, dtype=torch.int32).to(dev)
-    mask = (torch.rand((n,), generator=g) < 0.7).to(torch.float32).to(dev)
-    ids64 = ids.to(torch.int64)
-    bound_ms, bound_by = _bound(n * 8 + 512 * 4, n * 2)
-    rows.append(dict(
-        name="masked_histogram_counts", route="cuda",
-        source="piccolo_tpu_torch/kernels/csrc/masked_histogram.cu",
-        replaces="piccolo_tpu/kernels/histogram_mxu.py:39", max_abs_err=0.0,
-        ms=cuda_ms(lambda: masked_histogram_counts(ids, mask)),
-        plain_ms=cuda_ms(lambda: masked_histogram_counts_plain(ids, mask)),
-        bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=cuda_ms(lambda: torch.bincount(ids64, weights=mask,
-                                                  minlength=512))))
+    phase_f32_cli_shapes(cli, dev, img, rgb)
+    rows.append(phase_masked_histogram(dev))
     for row in rows:
         log(f"{row['name']}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f} ms, "
             f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}, library "
             f"{row['library_ms']})")
     return rows
+
+
+def phase_f32_cli_shapes(cli, dev, img, rgb):
+    """The f32 group-sum kernel on an f32 plan built as the CLI's forced run
+    D builds it: every group with the first query's colours re-baked in the
+    kernel (fused) and into a copy of the group first (unfused), group 0
+    timed against its recounted bound, and stage 1 of a query with the
+    colours, fused against the copying route, in turns."""
+    from piccolo_tpu_torch.kernels import slab_sampling as slab
+
+    grids = cli["grids"]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    plan = slab.build_grid_plan(
+        cli["xyz_d"], cli["rgb_d"], cli["mask_d"], grids.trans[:grids.n_trans],
+        grids.rot, img.shape[0], img.shape[1], device=dev)
+    torch.cuda.synchronize()
+    log(f"f32 GridPlan at the CLI's shapes: {plan.nbytes} B, "
+        f"{len(plan.fields)} groups x {tuple(plan.fields[0].shape)}, window "
+        f"{plan.window}, block {plan.block}, built in {time.time() - t0:.3f} s")
+    table = slab.slab_table(img, window=plan.window)
+    rgb4 = slab._rgb4(rgb)
+    err = 0.0
+    for g, (f, w) in enumerate(zip(plan.fields, plan.windows)):
+        for route, args in (("fused", (f, rgb4)),
+                            ("unfused", (_f32_rebaked(f, rgb), None))):
+            got = slab.slab_group_sums_f32(table, args[0], w, plan.window,
+                                           args[1])
+            want = slab.slab_group_sums_f32_plain(table, args[0], w,
+                                                  plan.window, args[1])
+            torch.cuda.synchronize()
+            if not torch.equal(got[1], want[1]):
+                raise AssertionError(f"f32 slab kernel ({route}) counts differ "
+                                     f"from the plain version in group {g}")
+            torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+            err = max(err, float((got[0] - want[0]).abs().max()))
+        del args
+    f, w = plan.fields[0], plan.windows[0]
+    rebaked = _f32_rebaked(f, rgb)
+    nb, _, block = f.shape
+    samples, pads, pad_blocks, n_win = _f32_plan_stats(f, w)
+    ops = samples * F32_OPS_PER_SAMPLE
+    n_fused, _ = _f32_bytes(samples, pads, nb, n_win, plan.window,
+                            rgb.shape[0])
+    n_unfused, n_blk = _f32_bytes(samples, pads, nb, n_win, plan.window)
+    b_fused, _ = _bound(n_fused, ops)
+    b_unfused, by = _bound(n_unfused, ops)
+    b_blk, _ = _bound(n_blk, ops)
+    ms = cuda_ms(lambda: slab.slab_group_sums_f32(table, f, w, plan.window,
+                                                  rgb4))
+    ms_unfused = cuda_ms(lambda: slab.slab_group_sums_f32(table, rebaked, w,
+                                                          plan.window))
+    log(f"f32 slab kernel vs plain at the CLI's shapes on all "
+        f"{len(plan.fields)} groups, fused and unfused: counts exact, max "
+        f"|sum err| {err:.3g}; group 0 (nb={nb}, block={block}, {samples} "
+        f"real samples, {pads} pad slots, {pad_blocks} blocks with a pad slot "
+        f"0, {n_win} distinct windows): fused {ms:.4f} ms, bound "
+        f"{b_fused:.4f} ms ({n_fused} B recounted); unfused "
+        f"{ms_unfused:.4f} ms, bound {b_unfused:.4f} ms by {by} ({n_unfused} "
+        f"B recounted), {b_blk:.4f} ms by the per-block count ({n_blk} B)")
+    fused_q, clone_q = cuda_ms_turns([
+        lambda: slab.slab_pair_scores(img, plan, rgb),
+        lambda: _unfused_pair_scores(img, plan, rgb)], reps=10)
+    a = slab.slab_pair_scores(img, plan, rgb)
+    b = _unfused_pair_scores(img, plan, rgb)
+    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    log(f"f32 stage 1 per query ({len(plan.fields)} groups, slab_pair_scores "
+        f"with the colours): fused re-bake {fused_q:.4f} ms, re-bake into a "
+        f"copy of each group {clone_q:.4f} ms")
+    del plan, table, f, w, rebaked
+    torch.cuda.empty_cache()
+
+
+def phase_masked_histogram(dev):
+    """The masked histogram against its plain version at N = 8,388,608 (a
+    4096x2048 panorama), 524,288 (a 1024x512 image) and 3,001: bit-exact on
+    0/1 masks, the same bits from two calls on a random-valued mask; timed
+    at the first two beside an empty kernel's device time, the floor of any
+    launch under cuda_ms."""
+    from piccolo_tpu_torch.kernels.histogram import (
+        masked_histogram_counts,
+        masked_histogram_counts_plain,
+    )
+
+    g = torch.Generator(device="cpu").manual_seed(1)
+    for n in (8388608, 524288, 3001):
+        ids = torch.randint(-3, 530, (n,), generator=g,
+                            dtype=torch.int32).to(dev)
+        mask = (torch.rand((n,), generator=g) < 0.7).to(torch.float32).to(dev)
+        got = masked_histogram_counts(ids, mask)
+        want = masked_histogram_counts_plain(ids, mask)
+        noisy = torch.rand((n,), generator=g).to(dev)
+        again = [masked_histogram_counts(ids, noisy) for _ in range(2)]
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"masked histogram differs at N={n}")
+        if not torch.equal(again[0], again[1]):
+            raise AssertionError(f"masked histogram is not repeatable at N={n}")
+        log(f"masked histogram vs plain at N={n}: bit-exact on a 0/1 mask; "
+            f"two calls on a random mask give the same bits")
+    empty_ms = cuda_ms(lambda: torch.cuda._sleep(0))
+    rows = {}
+    for n in (524288, 8388608):
+        ids = torch.randint(0, 512, (n,), generator=g, dtype=torch.int32).to(dev)
+        mask = (torch.rand((n,), generator=g) < 0.7).to(torch.float32).to(dev)
+        ids64 = ids.to(torch.int64)
+        bound_ms, bound_by = _bound(n * 8 + 512 * 4, n * 2)
+        rows[n] = dict(
+            name="masked_histogram_counts", route="cuda",
+            source="piccolo_tpu_torch/kernels/csrc/masked_histogram.cu",
+            replaces="piccolo_tpu/kernels/histogram_mxu.py:39",
+            max_abs_err=0.0,
+            ms=cuda_ms(lambda: masked_histogram_counts(ids, mask)),
+            plain_ms=cuda_ms(lambda: masked_histogram_counts_plain(ids, mask)),
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=cuda_ms(lambda: torch.bincount(ids64, weights=mask,
+                                                      minlength=512)))
+        r = rows[n]
+        log(f"masked histogram at N={n}, 512 bins: {r['ms']:.4f} ms (plain "
+            f"{r['plain_ms']:.4f}, bincount {r['library_ms']:.4f}, bound "
+            f"{bound_ms:.4f} by {bound_by}); an empty kernel {empty_ms:.4f} ms")
+    return rows[524288]
 
 
 def phase_small_reference(dev):
@@ -564,7 +701,7 @@ def _query(room, img_init, img_main, dev):
 
 def phase_main_path(room, dev):
     from piccolo_tpu_torch.kernels.block_histogram import block_histogram
-    from piccolo_tpu_torch.kernels.slab_sampling import slab_block_partials
+    from piccolo_tpu_torch.kernels.slab_sampling import slab_group_sums_f32
     from piccolo_tpu_torch.ops.rotation import rot_from_ypr
 
     r = room
@@ -585,10 +722,10 @@ def phase_main_path(room, dev):
         return elapsed, float(np.linalg.norm(t - gt_t)), rot_err_rad(rot, R_gt)
 
     one(100)  # warm-up
-    slab_block_partials.launches = 0
+    slab_group_sums_f32.launches = 0
     block_histogram.launches = 0
     rows = [one(200 + i) for i in range(5)]
-    launches = dict(slab_block_partials=slab_block_partials.launches,
+    launches = dict(slab_group_sums_f32=slab_group_sums_f32.launches,
                     block_histogram=block_histogram.launches)
     for i, (s, te, re) in enumerate(rows):
         log(f"query {200 + i}: {s:.4f} s, t_err {te:.4f} m, "
@@ -618,8 +755,7 @@ def phase_profile(room, dev, median_s):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    own = {"slab_partials_kernel": "localize.stage1_loss_table",
-           "slab_sums_kernel": "localize.stage1_loss_table",
+    own = {"slab_sums_kernel": "localize.stage1_loss_table",
            "block_histogram_kernel": "localize.stage2_hist_trim"}
     _, _, img_init, img_main = _query_images(300, room["xyz"], room["rgb"], dev)
     torch.cuda.synchronize()
@@ -689,7 +825,7 @@ def phase_cli(cli, dev):
     n_q, tree, groups, est = CLI_QUERIES, cli["tree"], cli["groups"], cli["est"]
     R = int(cli["grids"].rot.shape[0])
     kernels = {fn.__name__: fn for fn in (
-        slab.slab_block_partials, slab.slab_group_sums_compact,
+        slab.slab_group_sums_f32, slab.slab_group_sums_compact,
         slab.slab_group_sums_q8, block_histogram, masked_histogram_counts)}
     builds = []
     real_build = slab.build_grid_plan
@@ -716,7 +852,7 @@ def phase_cli(cli, dev):
          f"slab_plan_cache_dir={plans}"),
         ("C", "slab_group_sums_q8",
          f"{forced},slab_quant=True,slab_plan_cache=False"),
-        ("D", "slab_block_partials",
+        ("D", "slab_group_sums_f32",
          f"sharpen_color=False,{forced},slab_plan_cache=False"),
         ("E", "", "sharpen_color=False,slab_init=False,hist_planes=False"),
         ("F", "slab_group_sums_q8",
@@ -817,7 +953,7 @@ def phase_cli(cli, dev):
     finally:
         slab.build_grid_plan = real_build
     return {
-        "slab_block_partials": (out["D"]["slab_block_partials"], n_q, "D"),
+        "slab_group_sums_f32": (out["D"]["slab_group_sums_f32"], n_q, "D"),
         "slab_group_sums_compact":
             (out["B"]["slab_group_sums_compact"], n_q, "B"),
         "slab_group_sums_q8": (out["C"]["slab_group_sums_q8"], n_q, "C"),

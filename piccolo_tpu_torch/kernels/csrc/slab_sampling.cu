@@ -25,26 +25,24 @@
 // Scoring, one core for the three layouts (lerp_texels, target_loss): lerp
 // the 12-texel row in bilinear_sample_packed's tap order, drop pure-black
 // samples, take safe_norm's distance to the target rgb, and add it (and 1)
-// into the sample's pair slots.  Decodes follow the JAX kernels: compact
-// splits lc = lidx*128 + cid and the packed target into exact integers and
-// divides the target bytes by 255 with IEEE rounding; q8 multiplies its
-// 8-bit fractions by the f32 reciprocal of 255.  Built with -fmad=false:
-// every sample's value rounds exactly like the plain PyTorch version's on
-// plans as the builders make them (integer lc and 24-bit targets); the sums
-// differ from it only in the order of the float adds (counts are exact).
+// into the sample's pair slots.  f32 plans hold their targets as f32 values
+// and need no decode.  Compact and q8 decodes follow the JAX kernels:
+// compact splits lc = lidx*128 + cid and the packed target into exact
+// integers and divides the target bytes by 255 with IEEE rounding; q8
+// multiplies its 8-bit fractions by the f32 reciprocal of 255.  Built with
+// -fmad=false: every sample's value rounds exactly like the plain PyTorch
+// version's on plans as the builders make them (integer lc and 24-bit
+// targets); the sums differ from it only in the order of the float adds
+// (counts are exact).
 //
-// f32 plans, slab_partials_kernel: one CUDA block per plan block stages its
-// window (window x 12 f32), adds with shared atomics and writes (nb, 2, 128)
-// per-block partials, which the wrapper sums.  Bound by bytes: 28 B a real
-// sample, 8 B a pad slot.
-//
-// Compact and q8 plans, slab_sums_kernel: a group's sums in one launch.
-// Its byte bound on the H100: 16 B (compact) or 8 B (q8) a real sample, a
-// 4 B probe a plan block, each distinct table window once (48 B a row), the
-// windows, the palette once when the kernel re-bakes, and 1 KB out: at the
-// CLI's shapes (window 256, block 512, 24,576 blocks, 8.4 M real samples a
-// group) 92.5 MB, 0.028 ms, for q8 and 159.6 MB, 0.048 ms, for compact.
-// What the design does:
+// slab_sums_kernel<layout, pid>: a group's sums in one launch, for all three
+// layouts.  Its byte bound on the H100: 28 B (f32; 20 B when the kernel
+// re-bakes), 16 B (compact) or 8 B (q8) a real sample, a 4 B probe a plan
+// block, each distinct table window once (48 B a row), the windows, the
+// colours once when the kernel re-bakes, and 1 KB out: at the CLI's shapes
+// (window 256, block 512, 24,576 blocks, 8.4 M real samples a group)
+// 92.5 MB, 0.028 ms, for q8, 159.6 MB, 0.048 ms, for compact and about
+// 260 MB, 0.078 ms, for f32.  What the design does:
 //   * persistent CTAs (as many as the card holds) walk the plan in chunks of
 //     `chunk` consecutive blocks, chunk c to CTA c mod grid, so that every
 //     CTA gets an even share; the table window is restaged only when
@@ -53,8 +51,10 @@
 //   * one probe (a lane a block, one ballot) covers the CTA's next 32
 //     blocks and finds those whose slot 0 is real: pad-only blocks cost a
 //     4 B read and no staging;
-//   * streams are read 16 B a thread (four samples), the next block's while
-//     the current one is scored, with the streaming cache hint;
+//   * streams are read 16 B a thread (four samples), with the streaming
+//     cache hint; compact and q8 read the next block's while the current
+//     one is scored; f32 reads a block's seven rows when it scores it, as
+//     holding them a block ahead costs more in occupancy than it hides;
 //   * the four samples of a thread are lerped before their targets are
 //     needed, and the target bytes' quotients by 255 come from a 256-entry
 //     table of IEEE quotients in shared memory instead of three divisions;
@@ -66,15 +66,17 @@
 //     each shared slot.  The CTA adds its warps' copies in warp order and
 //     writes one (2, 128) partial; the wrapper adds the partials in a fixed
 //     order, so a group's sums do not change from run to run;
-//   * with a palette (pack_rgb24 of the query's colours) the tps stream holds
-//     point ids and the kernel looks each target up itself, so the per-query
-//     re-bake writes no target stream.
+//   * the per-query re-bake is fused: with a palette the kernel reads each
+//     sample's point id and looks its target up itself, so no target stream
+//     is rewritten.  Compact and q8 plans hold point ids in tps and take
+//     pack_rgb24 of the colours (4 B a point); f32 plans keep their pid row
+//     and take the colours as (N, 4) f32, one 16 B load a target, the same
+//     floats a re-bake would write into the plan.
 // It stays well above that bound: measured apart (scripts/
 // bench_slab_sums.py; numbers in PERF.md), the scoring's latency holds it
-// (6-7 CTAs an SM at 70-80 registers a thread hide too little of it), then
-// the walk and its streams, the palette gathers (a 32 B L2 sector for each
-// 4 B target) and the adds.  Left for later work: fewer registers or more
-// samples a thread in flight, and TMA streaming of the plan.
+// (few CTAs an SM at 70-80 registers a thread hide too little of it), then
+// the walk and its streams, the palette gathers (a 32 B L2 sector a target)
+// and the adds.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -84,6 +86,15 @@ namespace {
 constexpr int kGroup = 128;
 constexpr int kTexels = 12;
 constexpr float kInv255 = 1.0f / 255.0f;
+constexpr int kSumThreads = 128;
+constexpr int kWarps = kSumThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+// rows of an f32 block read one block ahead (the rest when it is scored):
+// none, since seven rows held ahead cost more occupancy than they hide
+// latency (scripts/bench_slab_sums.py, variants f32_ahead_*)
+constexpr int kF32AheadRows = 0;
+
+enum class Layout : int { kCompact = 0, kQ8 = 1, kF32 = 2 };
 
 // The scoring core shared by the three layouts, in two halves.  First the
 // sample's 12 texels v lerped in bilinear_sample_packed's tap order into
@@ -112,17 +123,6 @@ __device__ __forceinline__ float target_loss(const float* s, float tr,
     return sq > 0.0f ? sqrtf(sq) : 0.0f;
 }
 
-// One sample into its pair's shared-memory slots (f32 plans).
-__device__ __forceinline__ void score_sample(const float* v, float x1,
-                                             float y1, float tr, float tg,
-                                             float tb, int cid, float* acc,
-                                             int* cnt) {
-    float s[3];
-    if (!lerp_texels(v, x1, y1, s)) return;  // pure-black sample
-    atomicAdd(&acc[cid], target_loss(s, tr, tg, tb));
-    atomicAdd(&cnt[cid], 1);
-}
-
 // A packed target r<<16|g<<8|b (a 24-bit integer held in an f32, as
 // pack_rgb24 makes it) -> rgb in [0, 1]: its three bytes, each divided by
 // 255 with IEEE rounding (q255[i] = __fdiv_rn(i, 255)), as the JAX
@@ -141,64 +141,6 @@ __device__ __forceinline__ void unpack_target(float tp, const float* q255,
 __device__ __forceinline__ float byte_to_float(uint32_t x) {
     return __uint_as_float(0x4B000000u | x) - 8388608.0f;
 }
-
-// ---- f32 plans: one CUDA block per plan block --------------------------
-
-// Stage the block's table window and zero the pair accumulators.
-__device__ void stage_window(const float* __restrict__ table,
-                             const int* __restrict__ windows, int window,
-                             float* tab, float* acc, int* cnt) {
-    const float* src =
-        table + static_cast<size_t>(windows[blockIdx.x]) * window * kTexels;
-    for (int i = threadIdx.x; i < window * kTexels; i += blockDim.x) {
-        tab[i] = src[i];
-    }
-    for (int i = threadIdx.x; i < kGroup; i += blockDim.x) {
-        acc[i] = 0.0f;
-        cnt[i] = 0;
-    }
-    __syncthreads();
-}
-
-__global__ void slab_partials_kernel(const float* __restrict__ table,
-                                     const float* __restrict__ fields,
-                                     const int* __restrict__ windows,
-                                     float* __restrict__ out,
-                                     int block, int window) {
-    extern __shared__ float smem[];
-    float* tab = smem;                                  // window * 12
-    float* acc = tab + window * kTexels;                // 128
-    int* cnt = reinterpret_cast<int*>(acc + kGroup);    // 128
-    stage_window(table, windows, window, tab, acc, cnt);
-
-    const float* f = fields + static_cast<size_t>(blockIdx.x) * 8 * block;
-    for (int i = threadIdx.x; i < block; i += blockDim.x) {
-        const int li = static_cast<int>(f[i]);
-        const int cid = static_cast<int>(f[6 * block + i]);
-        if (li < 0 || cid < 0) continue;  // padding slot
-        score_sample(tab + li * kTexels, f[block + i], f[2 * block + i],
-                     f[3 * block + i], f[4 * block + i], f[5 * block + i],
-                     cid, acc, cnt);
-    }
-    __syncthreads();
-    float* o = out + static_cast<size_t>(blockIdx.x) * 2 * kGroup;
-    for (int i = threadIdx.x; i < kGroup; i += blockDim.x) {
-        o[i] = acc[i];
-        o[kGroup + i] = static_cast<float>(cnt[i]);
-    }
-}
-
-constexpr int kThreads = 256;
-
-size_t smem_bytes(int window) {
-    return (static_cast<size_t>(window) * kTexels + 2 * kGroup) * sizeof(float);
-}
-
-// ---- compact and q8 plans: persistent CTAs, the group's sums ------------
-
-constexpr int kSumThreads = 128;
-constexpr int kWarps = kSumThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float lane4(const float4& v, int k) {
     return k == 0 ? v.x : (k == 1 ? v.y : (k == 2 ? v.z : v.w));
@@ -230,11 +172,14 @@ __device__ __forceinline__ void stage_wait() {
 }
 
 // Four consecutive samples of one block, as they come from the streams.
-template <bool kQ8>
+// load_ahead reads what is read one block ahead, load_rest the rest, load
+// both; target(k) is sample k's target (rgb, or a packed value in .x) or,
+// when the kernel re-bakes (kPid), its point id in .x.
+template <Layout L, bool kPid>
 struct Samples;
 
-template <>
-struct Samples<false> {  // compact: rows lc, wx1, wy1, then tps
+template <bool kPid>
+struct Samples<Layout::kCompact, kPid> {  // rows lc, wx1, wy1, then tps
     float4 lc, x1, y1, tp;
 
     __device__ __forceinline__ void load(const void* fields,
@@ -250,6 +195,15 @@ struct Samples<false> {  // compact: rows lc, wx1, wy1, then tps
                         tps + static_cast<size_t>(b) * block) + v);
     }
 
+    __device__ __forceinline__ void load_ahead(const void* fields,
+                                               const float* tps, int b,
+                                               int block, int v) {
+        load(fields, tps, b, block, v);
+    }
+
+    __device__ __forceinline__ void load_rest(const void*, const float*, int,
+                                              int, int) {}
+
     // Sample k's row, pair and fractions; false for a pad.
     __device__ __forceinline__ bool decode(int k, int window, int* li,
                                            int* cid, float* wx,
@@ -263,6 +217,10 @@ struct Samples<false> {  // compact: rows lc, wx1, wy1, then tps
         return l >= 0;
     }
 
+    __device__ __forceinline__ float4 target(int k) const {
+        return make_float4(lane4(tp, k), 0.0f, 0.0f, 0.0f);
+    }
+
     static __device__ __forceinline__ bool real_block(const void* fields,
                                                       int b, int block,
                                                       int window) {
@@ -271,8 +229,8 @@ struct Samples<false> {  // compact: rows lc, wx1, wy1, then tps
     }
 };
 
-template <>
-struct Samples<true> {  // q8: one packed word, then tps
+template <bool kPid>
+struct Samples<Layout::kQ8, kPid> {  // q8: one packed word, then tps
     uint4 g;
     float4 tp;
 
@@ -286,6 +244,15 @@ struct Samples<true> {  // q8: one packed word, then tps
                         tps + static_cast<size_t>(b) * block) + v);
     }
 
+    __device__ __forceinline__ void load_ahead(const void* fields,
+                                               const float* tps, int b,
+                                               int block, int v) {
+        load(fields, tps, b, block, v);
+    }
+
+    __device__ __forceinline__ void load_rest(const void*, const float*, int,
+                                              int, int) {}
+
     __device__ __forceinline__ bool decode(int k, int window, int* li,
                                            int* cid, float* wx,
                                            float* wy) const {
@@ -297,12 +264,83 @@ struct Samples<true> {  // q8: one packed word, then tps
         return *li < window;  // pads have lidx = 511
     }
 
+    __device__ __forceinline__ float4 target(int k) const {
+        return make_float4(lane4(tp, k), 0.0f, 0.0f, 0.0f);
+    }
+
     static __device__ __forceinline__ bool real_block(const void* fields,
                                                       int b, int block,
                                                       int window) {
         const uint32_t p = __ldg(static_cast<const uint32_t*>(fields) +
                                  static_cast<size_t>(b) * block);
         return static_cast<int>(p >> 23) < window;
+    }
+};
+
+// f32: rows lidx, wx1, wy1, then r, g, b, cid or, when the kernel re-bakes
+// the targets, cid and pid (20 B a sample instead of 28).
+template <bool kPid>
+struct Samples<Layout::kF32, kPid> {
+    static constexpr int kRows = kPid ? 5 : 7;
+    static constexpr int kAhead = kF32AheadRows < kRows ? kF32AheadRows : kRows;
+    float4 row[kRows];
+
+    // the plan row that holds row r of this struct
+    static __device__ __forceinline__ int plan_row(int r) {
+        return kPid && r >= 3 ? r + 3 : r;
+    }
+
+    template <int kLo, int kHi>
+    __device__ __forceinline__ void load_rows(const void* fields, int b,
+                                              int block, int v) {
+        const float4* f = reinterpret_cast<const float4*>(
+            static_cast<const float*>(fields) + static_cast<size_t>(b) * 8 * block);
+        const int q = block >> 2;
+#pragma unroll
+        for (int r = kLo; r < kHi; ++r) row[r] = __ldcs(f + plan_row(r) * q + v);
+    }
+
+    __device__ __forceinline__ void load(const void* fields, const float*,
+                                         int b, int block, int v) {
+        load_rows<0, kRows>(fields, b, block, v);
+    }
+
+    __device__ __forceinline__ void load_ahead(const void* fields,
+                                               const float*, int b, int block,
+                                               int v) {
+        load_rows<0, kAhead>(fields, b, block, v);
+    }
+
+    __device__ __forceinline__ void load_rest(const void* fields,
+                                              const float*, int b, int block,
+                                              int v) {
+        load_rows<kAhead, kRows>(fields, b, block, v);
+    }
+
+    __device__ __forceinline__ bool decode(int k, int window, int* li,
+                                           int* cid, float* wx,
+                                           float* wy) const {
+        *li = static_cast<int>(lane4(row[0], k));
+        *cid = static_cast<int>(lane4(row[kPid ? 3 : 6], k));
+        *wx = lane4(row[1], k);
+        *wy = lane4(row[2], k);
+        return *li >= 0 && *cid >= 0;  // pads have lidx = cid = -1
+    }
+
+    __device__ __forceinline__ float4 target(int k) const {
+        if constexpr (kPid) {
+            return make_float4(lane4(row[4], k), 0.0f, 0.0f, 0.0f);
+        } else {
+            return make_float4(lane4(row[3], k), lane4(row[4], k),
+                               lane4(row[5], k), 0.0f);
+        }
+    }
+
+    static __device__ __forceinline__ bool real_block(const void* fields,
+                                                      int b, int block,
+                                                      int window) {
+        return __ldg(static_cast<const float*>(fields) +
+                     static_cast<size_t>(b) * 8 * block) >= 0.0f;
     }
 };
 
@@ -330,30 +368,36 @@ __device__ __forceinline__ void warp_add(float* wacc, int* wcnt, float* stage,
 // Score four samples against the staged window `tab` (none unless
 // `live`).  Pads are scored against row 0 and dropped, so that the four
 // rows are read up front and the four samples' arithmetic interleaves.
-template <bool kQ8, bool kPid>
-__device__ __forceinline__ void score4(const Samples<kQ8>& s, bool live,
+template <Layout L, bool kPid>
+__device__ __forceinline__ void score4(const Samples<L, kPid>& s, bool live,
                                        const float4* tab, int window,
-                                       const float* __restrict__ palette,
+                                       const void* __restrict__ palette,
                                        int n_pal, const float* q255,
                                        float* wacc, int* wcnt, float* stage) {
     int li[4], cid[4];
-    float wx[4], wy[4], tp[4], loss[4];
+    float wx[4], wy[4], loss[4];
+    float4 tgt[4];
     bool ok[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
         ok[k] = s.decode(k, window, &li[k], &cid[k], &wx[k], &wy[k]) && live;
         if (!ok[k]) li[k] = 0;
-        tp[k] = lane4(s.tp, k);
+        tgt[k] = s.target(k);
     }
-    if (kPid) {  // the re-bake: point id -> packed target
+    if constexpr (kPid) {  // the re-bake: point id -> target
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
-            const int pid = static_cast<int>(tp[k]);
+            const int pid = static_cast<int>(tgt[k].x);
             if (ok[k] && static_cast<unsigned>(pid) >=
                              static_cast<unsigned>(n_pal)) {
                 __trap();  // a point id outside the palette: not this cloud
             }
-            tp[k] = __ldg(palette + (ok[k] ? pid : 0));
+            const int p = ok[k] ? pid : 0;
+            if constexpr (L == Layout::kF32) {
+                tgt[k] = __ldg(static_cast<const float4*>(palette) + p);
+            } else {
+                tgt[k].x = __ldg(static_cast<const float*>(palette) + p);
+            }
         }
     }
     // the lerps need no target: they cover the palette loads' latency
@@ -368,8 +412,10 @@ __device__ __forceinline__ void score4(const Samples<kQ8>& s, bool live,
     }
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-        float tr, tg, tb;
-        unpack_target(tp[k], q255, &tr, &tg, &tb);
+        float tr = tgt[k].x, tg = tgt[k].y, tb = tgt[k].z;
+        if constexpr (L != Layout::kF32) {
+            unpack_target(tgt[k].x, q255, &tr, &tg, &tb);
+        }
         loss[k] = target_loss(rgb[k], tr, tg, tb);
     }
 #pragma unroll
@@ -382,7 +428,7 @@ __device__ __forceinline__ void score4(const Samples<kQ8>& s, bool live,
 // ... of `chunk` consecutive blocks, and in each the blocks whose slot 0
 // is real.  One probe (a lane a block, one ballot) covers the CTA's next
 // 32 / chunk chunks.  Every thread of the CTA holds the same state.
-template <bool kQ8>
+template <Layout L>
 struct Walker {
     const void* fields;
     const int* windows;
@@ -402,7 +448,7 @@ struct Walker {
         bool real = false;
         lane_win = 0;
         if (lane < 32 / chunk * chunk && b < nb) {
-            real = Samples<kQ8>::real_block(fields, b, block, window);
+            real = Samples<L, false>::real_block(fields, b, block, window);
             lane_win = __ldg(windows + b);
         }
         mask = __ballot_sync(kFull, real);
@@ -423,12 +469,12 @@ struct Walker {
     }
 };
 
-template <bool kQ8, bool kPid>
+template <Layout L, bool kPid>
 __global__ void __launch_bounds__(kSumThreads)
 slab_sums_kernel(const float4* __restrict__ table,
                  const void* __restrict__ fields,
                  const float* __restrict__ tps,
-                 const float* __restrict__ palette, int n_pal,
+                 const void* __restrict__ palette, int n_pal,
                  const int* __restrict__ windows,
                  float* __restrict__ partials, int nb, int block, int window,
                  int chunk) {
@@ -446,24 +492,26 @@ slab_sums_kernel(const float4* __restrict__ table,
         acc[i] = 0.0f;
         cnt[i] = 0;
     }
-    for (int i = threadIdx.x; i < 256; i += blockDim.x) {
-        q255[i] = __fdiv_rn(static_cast<float>(i), 255.0f);
+    if constexpr (L != Layout::kF32) {
+        for (int i = threadIdx.x; i < 256; i += blockDim.x) {
+            q255[i] = __fdiv_rn(static_cast<float>(i), 255.0f);
+        }
     }
 
-    Walker<kQ8> walk{fields, windows, nb, block, window, chunk,
-                     (nb + chunk - 1) / chunk,
-                     static_cast<int>(blockIdx.x) -
-                         32 / chunk * static_cast<int>(gridDim.x),
-                     0u, 0};
+    Walker<L> walk{fields, windows, nb, block, window, chunk,
+                   (nb + chunk - 1) / chunk,
+                   static_cast<int>(blockIdx.x) -
+                       32 / chunk * static_cast<int>(gridDim.x),
+                   0u, 0};
     const int nvec = block >> 2;
     const int v0 = threadIdx.x;
     int win = 0;
     int cur = walk.next(&win);
     int buf = 0;
-    Samples<kQ8> pre;
+    Samples<L, kPid> pre;
     if (cur >= 0) {
         stage_async(smem4, table, win, window);
-        if (v0 < nvec) pre.load(fields, tps, cur, block, v0);
+        if (v0 < nvec) pre.load_ahead(fields, tps, cur, block, v0);
     }
     while (cur >= 0) {
         stage_wait();
@@ -477,16 +525,22 @@ slab_sums_kernel(const float4* __restrict__ table,
             nbuf = buf ^ 1;
             stage_async(smem4 + nbuf * wsize, table, nwin, window);
         }
-        Samples<kQ8> now = pre;
-        if (nxt >= 0 && v0 < nvec) pre.load(fields, tps, nxt, block, v0);
+        Samples<L, kPid> now = pre;
+        if (nxt >= 0 && v0 < nvec) pre.load_ahead(fields, tps, nxt, block, v0);
         const float4* tab = smem4 + buf * wsize;
         // every lane takes part in each round (the warp's adds are
         // collective); lanes past the block's end add nothing
         for (int v = v0; v - v0 < nvec; v += blockDim.x) {
             const bool live = v < nvec;
-            if (v != v0 && live) now.load(fields, tps, cur, block, v);
-            score4<kQ8, kPid>(now, live, tab, window, palette, n_pal, q255,
-                              wacc, wcnt, stage + warp * 32);
+            if (live) {
+                if (v == v0) {
+                    now.load_rest(fields, tps, cur, block, v);
+                } else {
+                    now.load(fields, tps, cur, block, v);
+                }
+            }
+            score4<L, kPid>(now, live, tab, window, palette, n_pal, q255,
+                            wacc, wcnt, stage + warp * 32);
         }
         cur = nxt;
         win = nwin;
@@ -507,14 +561,22 @@ slab_sums_kernel(const float4* __restrict__ table,
 }
 
 using SumsKernel = void (*)(const float4*, const void*, const float*,
-                            const float*, int, const int*, float*, int, int,
+                            const void*, int, const int*, float*, int, int,
                             int, int);
 
-SumsKernel sums_kernel(int quant, int pid) {
-    if (quant) {
-        return pid ? slab_sums_kernel<true, true> : slab_sums_kernel<true, false>;
+template <Layout L>
+SumsKernel pick(int pid) {
+    return pid ? slab_sums_kernel<L, true> : slab_sums_kernel<L, false>;
+}
+
+// The kernel of layout 0 (compact), 1 (q8) or 2 (f32); null for another.
+SumsKernel sums_kernel(int layout, int pid) {
+    switch (layout) {
+        case 0: return pick<Layout::kCompact>(pid);
+        case 1: return pick<Layout::kQ8>(pid);
+        case 2: return pick<Layout::kF32>(pid);
+        default: return nullptr;
     }
-    return pid ? slab_sums_kernel<false, true> : slab_sums_kernel<false, false>;
 }
 
 size_t sums_smem_bytes(int window) {
@@ -535,22 +597,12 @@ cudaError_t allow_smem(SumsKernel kernel, int window) {
 
 }  // namespace
 
-extern "C" int slab_partials_launch(const void* table, const void* fields,
-                                    const void* windows, void* out, int nb,
-                                    int block, int window, void* stream) {
-    slab_partials_kernel<<<nb, kThreads, smem_bytes(window),
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(table), static_cast<const float*>(fields),
-        static_cast<const int*>(windows), static_cast<float*>(out), block,
-        window);
-    return static_cast<int>(cudaGetLastError());
-}
-
 // Resident CTAs of the group-sum kernel on the current device (SMs times
 // CTAs an SM holds at this window); 0 when it cannot stage the window.
-extern "C" int slab_sums_max_ctas(int quant, int pid, int window, int* ctas) {
+extern "C" int slab_sums_max_ctas(int layout, int pid, int window, int* ctas) {
     *ctas = 0;
-    const SumsKernel kernel = sums_kernel(quant, pid);
+    const SumsKernel kernel = sums_kernel(layout, pid);
+    if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess) {
@@ -569,22 +621,25 @@ extern "C" int slab_sums_max_ctas(int quant, int pid, int window, int* ctas) {
     return 0;
 }
 
-// Group sums of a compact (quant = 0) or q8 (quant = 1) plan group into
-// partials (n_cta, 2, 128); with a palette the tps stream holds point ids.
-extern "C" int slab_sums_launch(int quant, const void* table,
+// Group sums of a compact (layout 0), q8 (1) or f32 (2) plan group into
+// partials (n_cta, 2, 128).  With a palette the kernel re-bakes: tps (compact,
+// q8) or the pid row (f32) holds point ids, and the palette is pack_rgb24
+// of the colours (compact, q8) or the colours as (n_pal, 4) f32 (f32).
+extern "C" int slab_sums_launch(int layout, const void* table,
                                 const void* fields, const void* tps,
                                 const void* palette, int n_pal,
                                 const void* windows, void* partials, int n_cta,
                                 int nb, int block, int window, int chunk,
                                 void* stream) {
-    const SumsKernel kernel = sums_kernel(quant, palette != nullptr);
+    const SumsKernel kernel = sums_kernel(layout, palette != nullptr);
+    if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     const cudaError_t err = allow_smem(kernel, window);
     if (err != cudaSuccess) return static_cast<int>(err);
     kernel<<<n_cta, kSumThreads, sums_smem_bytes(window),
              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float4*>(table), fields,
-        static_cast<const float*>(tps), static_cast<const float*>(palette),
-        n_pal, static_cast<const int*>(windows), static_cast<float*>(partials),
-        nb, block, window, chunk);
+        static_cast<const float*>(tps), palette, n_pal,
+        static_cast<const int*>(windows), static_cast<float*>(partials), nb,
+        block, window, chunk);
     return static_cast<int>(cudaGetLastError());
 }

@@ -1,10 +1,12 @@
 """One masked histogram of (N,) bin ids weighted by an (N,) mask.
 
 Port of piccolo_tpu/kernels/histogram_mxu.py::histogram_pallas.  The CUDA
-kernel is ``csrc/masked_histogram.cu`` (grid-stride, shared-memory bins, one
-global atomic per bin); :func:`masked_histogram_counts_plain` is the same
-function in plain PyTorch.  ``ops.histogram.masked_histogram(...,
-use_kernel=True)`` routes through it, as ``use_pallas=True`` does in JAX.
+kernel is ``csrc/masked_histogram.cu`` (16 B loads, warp-owned bins in
+shared memory added in lane order, per-CTA partials added in a fixed order
+by a second launch: no float atomics, the same bits on every run);
+:func:`masked_histogram_counts_plain` is the same function in plain
+PyTorch.  ``ops.histogram.masked_histogram(..., use_kernel=True)`` routes
+through it, as ``use_pallas=True`` does in JAX.
 The wrapper takes the plain version only for tensors on the CPU; a CUDA
 tensor launches the kernel or raises.
 """
@@ -20,7 +22,10 @@ from ._build import load_library, on_device
 
 __all__ = ["masked_histogram_counts", "masked_histogram_counts_plain"]
 
-_MAX_BINS = 12 * 1024  # f32 bins within the 48 KB default smem
+_MAX_BINS = 12 * 1024  # 96 KB of bins and tags: two warps' fit a CTA
+# entries a CTA covers, at least (wider histograms give each CTA more, so
+# that zeroing and adding its bins stays a small share of its work)
+_ENTRIES_PER_CTA = 2048
 
 
 def masked_histogram_counts_plain(ids: torch.Tensor, mask: torch.Tensor,
@@ -37,10 +42,24 @@ def masked_histogram_counts_plain(ids: torch.Tensor, mask: torch.Tensor,
 @functools.cache
 def _launcher():
     fn = load_library("masked_histogram").masked_histogram_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _max_ctas(device_index: int, num_bins: int) -> int:
+    """CTAs of the histogram kernel that the card holds at once."""
+    fn = load_library("masked_histogram").masked_histogram_max_ctas
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    ctas = ctypes.c_int(0)
+    with on_device(torch.device("cuda", device_index)):
+        err = fn(num_bins, ctypes.byref(ctas))
+    if err != 0 or ctas.value == 0:
+        raise RuntimeError(f"masked histogram: no CTA of {num_bins} bins fits "
+                           f"this card (CUDA error {err})")
+    return ctas.value
 
 
 def masked_histogram_counts(ids: torch.Tensor, mask: torch.Tensor,
@@ -62,13 +81,21 @@ def masked_histogram_counts(ids: torch.Tensor, mask: torch.Tensor,
         raise ValueError("ids and mask must be contiguous")
     if not 0 < num_bins <= _MAX_BINS:
         raise ValueError(f"num_bins must be in (0, {_MAX_BINS}]")
-    out = torch.zeros(num_bins, dtype=torch.float32, device=ids.device)
-    if ids.numel() == 0:
-        return out
+    n = ids.numel()
+    if n >= 2**31:
+        raise ValueError(f"at most 2**31 - 1 entries, got {n}")
+    if n == 0:
+        return torch.zeros(num_bins, dtype=torch.float32, device=ids.device)
+    per_cta = max(_ENTRIES_PER_CTA, 8 * num_bins)
+    n_cta = max(1, min(-(-n // per_cta), _max_ctas(ids.device.index,
+                                                    num_bins)))
+    partials = torch.empty((n_cta, num_bins), dtype=torch.float32,
+                           device=ids.device)
+    out = torch.empty(num_bins, dtype=torch.float32, device=ids.device)
     launch = _launcher()
     with on_device(ids.device) as stream:
-        err = launch(ids.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                     ids.numel(), num_bins, stream)
+        err = launch(ids.data_ptr(), mask.data_ptr(), partials.data_ptr(),
+                     out.data_ptr(), n, num_bins, n_cta, stream)
     if err != 0:
         raise RuntimeError(f"masked_histogram launch failed: CUDA error {err}")
     masked_histogram_counts.launches += 1

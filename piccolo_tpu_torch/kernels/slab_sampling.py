@@ -4,12 +4,12 @@ Port of piccolo_tpu/kernels/slab_sampling.py in its three plan layouts.
 Stage-1 sample locations depend only on the room (cloud + candidate grid),
 so the plan computes every (pair, point) -> (table row, bilinear fractions)
 once, sorts each 128-pair group's samples by table row and pads them into
-blocks that each lie inside one aligned table window.  Per query, a CUDA
-kernel of ``csrc/slab_sampling.cu`` scores every block against its window
-of the packed sampling table: per-block partials for f32 plans, the
-group's sums in one launch for compact and q8 plans (re-baking targets from
-point ids itself).  A ``*_plain`` function beside each wrapper is the same
-function in plain PyTorch.
+blocks that each lie inside one aligned table window.  Per query, one
+launch of the CUDA kernel of ``csrc/slab_sampling.cu`` scores a group's
+blocks against their windows of the packed sampling table and returns the
+group's sums, in every layout, re-baking targets from point ids itself
+when the query rebinds the colours.  A ``*_plain`` function beside each
+wrapper is the same function in plain PyTorch.
 
 The plans keep the JAX package's stream layouts, so plans compare field for
 field and a JAX-built plan runs here unchanged
@@ -47,10 +47,11 @@ __all__ = [
     "make_pairs",
     "build_grid_plan",
     "slab_table",
-    "slab_block_partials",
     "slab_block_partials_plain",
     "slab_block_partials_compact_plain",
     "slab_block_partials_q8_plain",
+    "slab_group_sums_f32",
+    "slab_group_sums_f32_plain",
     "slab_group_sums_compact",
     "slab_group_sums_compact_plain",
     "slab_group_sums_q8",
@@ -547,15 +548,25 @@ def slab_group_sums_q8_plain(table: torch.Tensor, fields: torch.Tensor,
                              windows, window, palette)
 
 
+def slab_group_sums_f32_plain(table: torch.Tensor, fields: torch.Tensor,
+                              windows: torch.Tensor, window: int,
+                              rgb: Optional[torch.Tensor] = None):
+    """(loss_sum, valid_count), each (128,), of an f32 plan group: the
+    per-block partials summed over blocks.  With ``rgb`` ((N, 3) colours,
+    or their zero-padded (N, 4) copy) the r, g and b rows are first
+    re-baked from the pid row by one gather into a copy of the group."""
+    if rgb is not None:
+        pids = fields[:, _F_PID].to(torch.int64)
+        fields = fields.clone()
+        fields[:, _F_TR:_F_TB + 1] = rgb[pids][..., :3].permute(0, 2, 1)
+    out = slab_block_partials_plain(table, fields, windows, window)
+    return out[:, 0].sum(0), out[:, 1].sum(0)
+
+
 # ---- kernel wrappers -----------------------------------------------------
 
-
-@functools.cache
-def _partials_launcher():
-    fn = load_library("slab_sampling").slab_partials_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+# the kernel's layout codes (csrc/slab_sampling.cu)
+_COMPACT, _Q8, _F32 = 0, 1, 2
 
 
 @functools.cache
@@ -569,27 +580,26 @@ def _sums_launcher():
 
 
 @functools.cache
-def _max_ctas(device_index: int, quant: bool, pid: bool, window: int) -> int:
+def _max_ctas(device_index: int, layout: int, pid: bool, window: int) -> int:
     """CTAs of the group-sum kernel that the card holds at once."""
     fn = load_library("slab_sampling").slab_sums_max_ctas
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     ctas = ctypes.c_int(0)
     with on_device(torch.device("cuda", device_index)):
-        err = fn(int(quant), int(pid), window, ctypes.byref(ctas))
+        err = fn(layout, int(pid), window, ctypes.byref(ctas))
     if err != 0 or ctas.value == 0:
         raise ValueError(f"the group-sum kernel cannot stage a window of "
                          f"{window} rows on this card (CUDA error {err})")
     return ctas.value
 
 
-_MAX_WINDOW = 1000  # f32 kernel: window x 12 f32 + the accumulators in 48 KB
-_MAX_SUM_WINDOW = 2048  # group sums: two windows + accumulators in 227 KB
+_MAX_SUM_WINDOW = 2048  # two windows + accumulators in 227 KB
 _SUM_CHUNK = 2  # plan blocks a CTA of the group-sum kernel takes at a time
 
 
 def _check(table, fields, tps, windows, window, nf, field_dtype, name,
-           max_window=_MAX_WINDOW, palette=None):
+           palette=None):
     """Shapes, dtypes and devices of a wrapper call; True when the call
     runs on the card."""
     if table.dim() != 2 or table.shape[1] != 12 or table.shape[0] % window:
@@ -608,8 +618,6 @@ def _check(table, fields, tps, windows, window, nf, field_dtype, name,
         tensors.append(tps)
         dtypes.append(torch.float32)
     if palette is not None:
-        if palette.dim() != 1:
-            raise ValueError("palette must be (N,)")
         tensors.append(palette)
         dtypes.append(torch.float32)
     if [t.dtype for t in tensors] != dtypes:
@@ -625,48 +633,43 @@ def _check(table, fields, tps, windows, window, nf, field_dtype, name,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("table, fields, tps, palette and windows must be "
                          "contiguous")
-    if not 0 < window <= max_window:
-        raise ValueError(f"window must be in (0, {max_window}]")
+    if not 0 < window <= _MAX_SUM_WINDOW:
+        raise ValueError(f"window must be in (0, {_MAX_SUM_WINDOW}]")
     return True
 
 
-def slab_block_partials(table: torch.Tensor, fields: torch.Tensor,
-                        windows: torch.Tensor, window: int) -> torch.Tensor:
-    """Kernel wrapper of :func:`slab_block_partials_plain` (f32 plans)."""
-    if not _check(table, fields, None, windows, window, 8, torch.float32,
-                  "slab_block_partials"):
-        return slab_block_partials_plain(table, fields, windows, window)
-    nb, _, block = fields.shape
-    out = torch.empty((nb, 2, GROUP), dtype=torch.float32,
-                      device=fields.device)
-    if nb == 0:
-        return out
-    with on_device(fields.device) as stream:
-        err = _partials_launcher()(table.data_ptr(), fields.data_ptr(),
-                                   windows.data_ptr(), out.data_ptr(), nb,
-                                   block, window, stream)
-    if err != 0:
-        raise RuntimeError(f"slab_block_partials launch failed: CUDA error "
-                           f"{err}")
-    slab_block_partials.launches += 1
-    return out
+def _rgb4(rgb: torch.Tensor) -> torch.Tensor:
+    """(N, 3) colours -> their (N, 4) copy with a zero fourth column: the
+    f32 kernel's palette, one 16-byte load a target."""
+    return torch.nn.functional.pad(rgb, (0, 1))
 
 
-def _group_sums(wrapper, quant: bool, table, fields, tps, windows, window,
+def _group_sums(wrapper, layout: int, table, fields, tps, windows, window,
                 palette=None, chunk: int = _SUM_CHUNK,
                 ctas: Optional[int] = None):
-    """(loss_sum, valid_count) of one compact or q8 group: the group-sum
-    kernel for CUDA tensors (counted on ``wrapper``), the plain version for
-    CPU ones.  ``chunk`` is the number of consecutive plan blocks a CTA
-    takes at a time and ``ctas`` caps the grid (default: the CTAs the card
-    holds at once)."""
-    if quant and window > _Q8_MAX_WINDOW:
-        raise ValueError(f"q8 plans need window <= {_Q8_MAX_WINDOW}")
+    """(loss_sum, valid_count) of one plan group: the group-sum kernel for
+    CUDA tensors (counted on ``wrapper``), the plain version for CPU ones.
+    ``palette`` re-bakes the targets: ``pack_rgb24`` of the colours for
+    compact and q8 plans, the (N, 3) or (N, 4) colours for f32 plans.
+    ``chunk`` is the number of consecutive plan blocks a CTA takes at a time
+    and ``ctas`` caps the grid (default: the CTAs the card holds at once)."""
     name = wrapper.__name__
-    if not _check(table, fields, tps, windows, window, 1 if quant else 3,
-                  torch.int32 if quant else torch.float32, name,
-                  _MAX_SUM_WINDOW, palette):
-        plain = slab_group_sums_q8_plain if quant else \
+    if layout == _Q8 and window > _Q8_MAX_WINDOW:
+        raise ValueError(f"q8 plans need window <= {_Q8_MAX_WINDOW}")
+    if palette is not None:
+        if layout == _F32 and (palette.dim() != 2
+                               or palette.shape[1] not in (3, 4)):
+            raise ValueError(f"{name}: rgb must be (N, 3) or (N, 4)")
+        if layout != _F32 and palette.dim() != 1:
+            raise ValueError(f"{name}: palette must be (N,)")
+    nf, field_dtype = {_COMPACT: (3, torch.float32), _Q8: (1, torch.int32),
+                       _F32: (8, torch.float32)}[layout]
+    if not _check(table, fields, tps, windows, window, nf, field_dtype, name,
+                  palette):
+        if layout == _F32:
+            return slab_group_sums_f32_plain(table, fields, windows, window,
+                                             palette)
+        plain = slab_group_sums_q8_plain if layout == _Q8 else \
             slab_group_sums_compact_plain
         return plain(table, fields, tps, windows, window, palette)
     nb, _, block = fields.shape
@@ -675,7 +678,9 @@ def _group_sums(wrapper, quant: bool, table, fields, tps, windows, window,
                          f"reads four samples at a time), got {block}")
     if not 1 <= chunk <= 32:
         raise ValueError(f"{name}: chunk must be in [1, 32], got {chunk}")
-    tensors = [table, fields, tps] + ([] if palette is None else [palette])
+    if layout == _F32 and palette is not None and palette.shape[1] == 3:
+        palette = _rgb4(palette)
+    tensors = [t for t in (table, fields, tps, palette) if t is not None]
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{name}: table, fields, tps and palette must be "
                          "16-byte aligned")
@@ -683,14 +688,15 @@ def _group_sums(wrapper, quant: bool, table, fields, tps, windows, window,
         zeros = torch.zeros(GROUP, dtype=torch.float32, device=fields.device)
         return zeros, zeros.clone()
     if ctas is None:
-        ctas = _max_ctas(fields.device.index, quant, palette is not None,
+        ctas = _max_ctas(fields.device.index, layout, palette is not None,
                          window)
     n_cta = max(1, min(-(-nb // chunk), ctas))
     partials = torch.empty((n_cta, 2, GROUP), dtype=torch.float32,
                            device=fields.device)
     with on_device(fields.device) as stream:
         err = _sums_launcher()(
-            int(quant), table.data_ptr(), fields.data_ptr(), tps.data_ptr(),
+            layout, table.data_ptr(), fields.data_ptr(),
+            None if tps is None else tps.data_ptr(),
             None if palette is None else palette.data_ptr(),
             0 if palette is None else palette.shape[0], windows.data_ptr(),
             partials.data_ptr(), n_cta, nb, block, window, chunk, stream)
@@ -701,6 +707,19 @@ def _group_sums(wrapper, quant: bool, table, fields, tps, windows, window,
     return sums[0], sums[1]
 
 
+def slab_group_sums_f32(table: torch.Tensor, fields: torch.Tensor,
+                        windows: torch.Tensor, window: int,
+                        rgb: Optional[torch.Tensor] = None):
+    """Kernel wrapper of :func:`slab_group_sums_f32_plain`: one launch
+    scores the whole group and, with ``rgb``, takes each sample's target
+    from ``rgb[pid]`` itself, so the plan is not copied.  ``rgb`` may be
+    the zero-padded (N, 4) copy of the colours, which saves making it on
+    every call.  The point ids must index ``rgb``: the kernel traps on one
+    that does not, as an out-of-range gather does."""
+    return _group_sums(slab_group_sums_f32, _F32, table, fields, None,
+                       windows, window, rgb)
+
+
 def slab_group_sums_compact(table: torch.Tensor, fields: torch.Tensor,
                             tps: torch.Tensor, windows: torch.Tensor,
                             window: int,
@@ -709,7 +728,7 @@ def slab_group_sums_compact(table: torch.Tensor, fields: torch.Tensor,
     scores the whole group and, with ``palette``, re-bakes its targets from
     the point ids in ``tps``.  The point ids must index ``palette``: the
     kernel traps on one that does not, as an out-of-range gather does."""
-    return _group_sums(slab_group_sums_compact, False, table, fields, tps,
+    return _group_sums(slab_group_sums_compact, _COMPACT, table, fields, tps,
                        windows, window, palette)
 
 
@@ -717,11 +736,11 @@ def slab_group_sums_q8(table: torch.Tensor, fields: torch.Tensor,
                        tps: torch.Tensor, windows: torch.Tensor, window: int,
                        palette: Optional[torch.Tensor] = None):
     """Kernel wrapper of :func:`slab_group_sums_q8_plain`."""
-    return _group_sums(slab_group_sums_q8, True, table, fields, tps, windows,
+    return _group_sums(slab_group_sums_q8, _Q8, table, fields, tps, windows,
                        window, palette)
 
 
-slab_block_partials.launches = 0
+slab_group_sums_f32.launches = 0
 slab_group_sums_compact.launches = 0
 slab_group_sums_q8.launches = 0
 
@@ -747,19 +766,14 @@ def slab_group_partials(table: torch.Tensor, fields: torch.Tensor,
     """(loss_sum, valid_count), each (128,), of ONE candidate group.
 
     ``rgb`` re-bakes the targets from the plan's point ids (per-query
-    colour rebinds).  An f32 group is copied with new rgb rows; a compact
-    or q8 group keeps its streams, and its kernel looks each target up in
-    the packed palette ``pack_rgb24(rgb)``."""
+    colour rebinds).  The group keeps its streams: the kernel looks each
+    target up in ``rgb`` (f32 plans) or in the packed palette
+    ``pack_rgb24(rgb)`` (compact and q8 plans)."""
     if compact or quant:
         sums = slab_group_sums_q8 if quant else slab_group_sums_compact
         return sums(table, fields, tps, windows, window,
                     None if rgb is None else pack_rgb24(rgb))
-    if rgb is not None:
-        pids = fields[:, _F_PID].to(torch.int64)
-        fields = fields.clone()
-        fields[:, _F_TR:_F_TB + 1] = rgb[pids].permute(0, 2, 1)
-    out = slab_block_partials(table, fields, windows, window)
-    return out[:, 0].sum(0), out[:, 1].sum(0)
+    return slab_group_sums_f32(table, fields, windows, window, rgb)
 
 
 def slab_pair_scores(img: torch.Tensor, plan: GridPlan,
@@ -783,7 +797,8 @@ def slab_pair_scores(img: torch.Tensor, plan: GridPlan,
                       for f, w, tps in zip(plan.fields, plan.windows,
                                            plan.tps))
     else:
-        group_sums = (slab_group_partials(table, f, w, plan.window, rgb)
+        rgb4 = None if rgb is None else _rgb4(rgb)  # once a query
+        group_sums = (slab_group_sums_f32(table, f, w, plan.window, rgb4)
                       for f, w in zip(plan.fields, plan.windows))
     scores = []
     for tot, cnt in group_sums:

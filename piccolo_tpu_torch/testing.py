@@ -447,16 +447,19 @@ def write_synth_stanford(root: str, rooms: int = 1, queries: int = 3,
 
 
 def edge_plan_group(rng: np.random.Generator, specs, block: int, window: int,
-                    n_points: int, quant: bool = False, device="cpu"):
-    """One hand-built compact (or, with ``quant``, q8) plan group for the
-    slab kernels' edge cases.
+                    n_points: int, layout: str = "compact", rgb=None,
+                    device="cpu"):
+    """One hand-built plan group, in ``layout`` ("compact", "q8" or "f32"),
+    for the slab kernels' edge cases.
 
     ``specs[b] = (table window, real samples)`` of block b.  The real
     samples sit at the head of the block, as the plan builders put them, so
     a block with none holds only pads.  They draw their row, pair, 8-bit
     fractions and point id from ``rng``; each block's first sample has row
-    ``window - 1`` and pair 127.  Returns (fields, windows, tps holding the
-    point ids as f32; pads 0)."""
+    ``window - 1`` and pair 127.  An f32 group takes its targets from
+    ``rgb[pid]`` ((n_points, 3) colours) and keeps its point ids in its pid
+    row.  Returns (fields, windows, the point ids as (nb, 1, block) f32;
+    pads 0)."""
     nb = len(specs)
     li = rng.integers(0, window, (nb, block))
     cid = rng.integers(0, 128, (nb, block))
@@ -467,16 +470,27 @@ def edge_plan_group(rng: np.random.Generator, specs, block: int, window: int,
     pid = rng.integers(0, n_points, (nb, block))
     n_real = np.array([n for _, n in specs], np.int64).reshape(nb)
     real = np.arange(block)[None] < n_real[:, None]
-    if quant:
+    pid = np.where(real, pid, 0)
+    if layout == "q8":
         g = (li << 23) | (cid << 16) | (wx << 8) | wy
         g = np.where(real, g, 511 << 23).astype(np.uint32).view(np.int32)
         fields = g[:, None]
-    else:
+    elif layout == "compact":
         fields = np.stack([np.where(real, li * 128 + cid, -1),
                            np.where(real, wx / 255.0, 0.0),
                            np.where(real, wy / 255.0, 0.0)], 1)
         fields = fields.astype(np.float32)
-    tps = np.where(real, pid, 0).astype(np.float32)[:, None]
+    elif layout == "f32":
+        tgt = np.where(real[..., None], np.asarray(rgb, np.float32)[pid], 0.0)
+        # pads as the builder makes them: lidx = cid = -1, the rest 0
+        fields = np.stack([np.where(real, li, -1),
+                           np.where(real, wx / 255.0, 0.0),
+                           np.where(real, wy / 255.0, 0.0), tgt[..., 0],
+                           tgt[..., 1], tgt[..., 2], np.where(real, cid, -1),
+                           pid], 1).astype(np.float32)
+    else:
+        raise ValueError(f"unknown layout {layout!r}")
+    tps = pid.astype(np.float32)[:, None]
     windows = np.array([w for w, _ in specs], np.int32).reshape(nb)
     dev = resolve_device(device)
     return (torch.tensor(fields, device=dev), torch.tensor(windows, device=dev),

@@ -39,7 +39,7 @@ from piccolo_tpu_torch.init.candidates import (
     generate_trans_points,
 )
 from piccolo_tpu_torch.kernels.block_histogram import block_histogram
-from piccolo_tpu_torch.kernels.slab_sampling import slab_block_partials
+from piccolo_tpu_torch.kernels.slab_sampling import slab_group_sums_f32
 from piccolo_tpu_torch.ops import sampling as tsamp
 from piccolo_tpu_torch.testing import make_room
 
@@ -205,7 +205,7 @@ def test_guards_and_cpu_launch_counters(room):
     localize_query(*args, plan=plan, hist_plan=hplan, device="cpu", **KW)
     # on the CPU every wrapper runs its plain version: no kernel launched
     assert block_histogram.launches == 0
-    assert slab_block_partials.launches == 0
+    assert slab_group_sums_f32.launches == 0
 
 
 def _starts(r):

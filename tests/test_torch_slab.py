@@ -110,7 +110,7 @@ def test_plain_scorer_matches_jax_kernel_on_carried_plan(scene, refresh):
         np.testing.assert_array_equal(cnt.numpy(), np.asarray(want_cnt))
         np.testing.assert_allclose(tot.numpy(), np.asarray(want_tot),
                                    rtol=1e-6, atol=1e-6)
-    assert tslab.slab_block_partials.launches == 0  # CPU: plain version
+    assert tslab.slab_group_sums_f32.launches == 0  # CPU: plain version
 
 
 @pytest.mark.parametrize("wrap", [False, True])
