@@ -53,6 +53,27 @@ Phases (any failure exits non-zero; each prints its seconds):
      launch its kernel on every query that has a plan (run D: the f32
      kernel once a group, 9 times a query); B and C must give
      A's winners, B' B's, E D's, and F and G E's, within 1e-3 m;
+ 11. the library path with the descent's speed modes, prune (30, 2) and
+     multires (70, 2), in turns with the default descent: t_err, s/query
+     and the descent's device ms (profiled); this runs before phase 8, on
+     phase 3's room;
+ 12. the OmniScenes tree: 1 ray-cast room, one handheld video of 4 frames,
+     60,000 points, 2048x1024 JPEG q95 written by the port's encoder; the
+     host decode of a 2048x1024 and of a 4096x2048 frame;
+ 13. the OmniScenes room as the CLI loads it under configs/omniscenes.ini,
+     and the ladder there: the plan it admits at a 2048x1024 init image,
+     the HistPlan it refuses for match_color and, with match_color off,
+     admits or refuses by its budget;
+ 14. the kernels at the OmniScenes shapes against their plain versions: the
+     f32 group sums on every group of that plan, the block histogram on
+     the first frame's 50 candidates x 16 blocks of 256x512 from the live
+     splat and from the HistPlan; then one query's descent on the bf16
+     table (auto) against float32: winner poses within 0.01 m, both
+     localized;
+ 15. two CLI runs of the shipped configs/omniscenes.ini: fused (through the
+     ladder) and fused = False; accuracy >= 0.75 under 0.1 m / 5 deg each,
+     the same winners within 1e-3 m; launches counted over the fused run;
+ 16. one OmniScenes query under torch.profiler;
 then one JSON line of kernel measurements (launches from the CLI run that
 drives each kernel) and, last, the device line.
 """
@@ -80,8 +101,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 SIZE = (6.0, 4.0, 3.0)
 CLI_QUERIES = 4
+OMNI_QUERIES = 4
 CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
                       "stanford.ini")
+OMNI_CONFIG = os.path.join(os.path.dirname(CONFIG), "omniscenes.ini")
 
 
 def log(*a):
@@ -687,7 +710,7 @@ def phase_small_reference(dev):
     log(f"small room, card vs CPU: same starts and winner, |dt| {dt:.3g} m")
 
 
-def _query(room, img_init, img_main, dev):
+def _query(room, img_init, img_main, dev, **kw):
     from piccolo_tpu_torch import localize_query
 
     r = room
@@ -696,7 +719,7 @@ def _query(room, img_init, img_main, dev):
         r["valid"], r["lo"], r["hi"], r["mask_d"], num_intermediate=20,
         num_input=6, num_iter=100, lr=0.1, patience=5, factor=0.8,
         masked=True, plan=r["plan"], hist_plan=r["hplan"],
-        descent_table="auto", device=dev)
+        descent_table="auto", device=dev, **kw)
 
 
 def phase_main_path(room, dev):
@@ -742,26 +765,25 @@ def phase_main_path(room, dev):
     return launches, med_s
 
 
-def phase_profile(room, dev, median_s):
-    """One more query under torch.profiler: device busy time per stage span
-    (localize.*) and for the whole query, the idle share of the query's
-    wall time (profiled, and against the unprofiled median), and the
-    kernels that take the most device time.  A torch op's kernels are
-    charged to the span around the op; autograd runs the backward on its
-    own thread, outside every span, so ops under an ``autograd::engine``
-    frame are counted as the backward.  The port's own kernels are
-    launched through ctypes, under no torch op, so they are charged to
-    their stage by name."""
+def profile_query(label, run, median_s):
+    """One call of ``run`` (a query) under torch.profiler: device busy time
+    per stage span (localize.*) and for the whole query, the idle share of
+    the query's wall time (profiled, and against the unprofiled median
+    ``median_s``), and the kernels that take the most device time.  A torch
+    op's kernels are charged to the span around the op; autograd runs the
+    backward on its own thread, outside every span, so ops under an
+    ``autograd::engine`` frame are counted as the backward.  The port's own
+    kernels are launched through ctypes, under no torch op, so they are
+    charged to their stage by name.  Returns the stages' device ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     own = {"slab_sums_kernel": "localize.stage1_loss_table",
            "block_histogram_kernel": "localize.stage2_hist_trim"}
-    _, _, img_init, img_main = _query_images(300, room["xyz"], room["rgb"], dev)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        _query(room, img_init, img_main, dev)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.time() - t0) * 1e6
 
@@ -795,18 +817,27 @@ def phase_profile(room, dev, median_s):
                 add(stages, stage, k.duration)
     if busy_us > sum(stages.values()):
         stages["outside the stage spans"] = busy_us - sum(stages.values())
-    log(f"profiled query: wall {wall_us / 1e3:.1f} ms under the profiler, "
-        f"{n_ops} device ops")
+    log(f"{label} profiled query: wall {wall_us / 1e3:.1f} ms under the "
+        f"profiler, {n_ops} device ops")
     if busy_us == 0:
-        log("profile: torch.profiler recorded no device time (not measured)")
-        return
-    log(f"profile: device busy {busy_us / 1e3:.2f} ms, idle share "
+        log(f"{label} profile: torch.profiler recorded no device time (not "
+            "measured)")
+        return {}
+    log(f"{label} profile: device busy {busy_us / 1e3:.2f} ms, idle share "
         f"{1 - busy_us / wall_us:.3f} of the profiled query, "
         f"{1 - busy_us / (median_s * 1e6):.3f} of the unprofiled median")
     for name, us in sorted(stages.items(), key=lambda kv: -kv[1]):
-        log(f"profile stage {name}: device {us / 1e3:.2f} ms")
+        log(f"{label} profile stage {name}: device {us / 1e3:.2f} ms")
     for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
-        log(f"profile kernel {us / 1e3:8.2f} ms  {name[:100]}")
+        log(f"{label} profile kernel {us / 1e3:8.2f} ms  {name[:100]}")
+    return {k: us / 1e3 for k, us in stages.items()}
+
+
+def phase_profile(room, dev, median_s):
+    """One more library query under torch.profiler (profile_query)."""
+    _, _, img_init, img_main = _query_images(300, room["xyz"], room["rgb"], dev)
+    profile_query("library", lambda: _query(room, img_init, img_main, dev),
+                  median_s)
 
 
 def _csv_rows(log_dir):
@@ -961,6 +992,433 @@ def phase_cli(cli, dev):
     }
 
 
+def phase_speed_modes(room, dev):
+    """The library path with the descent's speed modes, prune (30, 2) and
+    multires (70, 2), against the default descent: after a warm-up of each,
+    5 rounds of one query per mode in turns (t_err and s/query medians),
+    then one query of each mode under torch.profiler for the descent's
+    device ms (its forward and Adam span plus the backward)."""
+    from piccolo_tpu_torch.ops.rotation import rot_from_ypr
+
+    modes = {"default": {}, "prune (30, 2)": dict(descent_prune=(30, 2)),
+             "multires (70, 2)": dict(descent_multires=(70, 2))}
+
+    def one(seed, kw):
+        gt_t, gt_ypr, img_init, img_main = _query_images(
+            seed, room["xyz"], room["rgb"], dev)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = _query(room, img_init, img_main, dev, **kw)
+        t = res.t.cpu().numpy()
+        elapsed = time.time() - t0
+        if not (np.isfinite(t).all() and res.cand_loss.shape == (6,)):
+            raise AssertionError(f"{kw}: malformed output")
+        R_gt = rot_from_ypr(torch.tensor(gt_ypr)).numpy()
+        return (elapsed, float(np.linalg.norm(t - gt_t)),
+                rot_err_rad(res.rot.cpu().numpy(), R_gt))
+
+    for kw in modes.values():
+        one(100, kw)
+    rows = {name: [] for name in modes}
+    for i in range(5):
+        for name, kw in modes.items():
+            rows[name].append(one(200 + i, kw))
+    out = {}
+    _, _, img_init, img_main = _query_images(300, room["xyz"], room["rgb"], dev)
+    for name, kw in modes.items():
+        med_s = float(np.median([r_[0] for r_ in rows[name]]))
+        med_t = float(np.median([r_[1] for r_ in rows[name]]))
+        descent = fwd = None
+        if kw:  # phase 7 profiled the default descent
+            stages = profile_query(
+                f"library {name}",
+                lambda: _query(room, img_init, img_main, dev, **kw), med_s)
+            fwd = stages.get("localize.stage3_descent", 0.0)
+            descent = fwd + stages.get(
+                "autograd backward (the descent's gradient)", 0.0)
+        log(f"library {name}: median {med_s:.4f} s/query, median t_err "
+            f"{med_t:.4f} m; per query s "
+            f"{[round(r_[0], 4) for r_ in rows[name]]}, t_err (m) "
+            f"{[round(r_[1], 4) for r_ in rows[name]]}"
+            + ("" if descent is None else
+               f"; descent device {descent:.2f} ms (forward and Adam "
+               f"{fwd:.2f}, backward {descent - fwd:.2f})"))
+        out[name] = dict(s=med_s, t_err=med_t, descent_ms=descent)
+    return out
+
+
+def host_ms(fn, reps):
+    """Median host milliseconds of ``reps`` calls after one warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def phase_omni_tree(tmp):
+    """The OmniScenes tree: 1 ray-cast room (6x4x3 m, 2 occluders, floor at
+    z = 0), one handheld video of OMNI_QUERIES frames, 60,000 points,
+    2048x1024 panoramas written as JPEG q95 by the port's encoder.  Then the
+    host decode of one of its frames, and of a 4096x2048 frame of the same
+    kind of room, each the median of a few calls."""
+    from piccolo_tpu_torch.data import omniscenes_pano_glob
+    from piccolo_tpu_torch.harness.imaging import jpeg_decode, jpeg_encode
+    from piccolo_tpu_torch.testing import (
+        make_scene,
+        raycast_pano,
+        scene_pose,
+        write_synth_omniscenes,
+    )
+
+    tree = os.path.join(tmp, "omni")
+    t0 = time.time()
+    write_synth_omniscenes(tree, rooms=1, queries=OMNI_QUERIES, points=60000,
+                           height=1024, seed=7, oracle="raycast")
+    t_write = time.time() - t0
+    panos = sorted(glob.glob(omniscenes_pano_glob(tree)))
+    with open(panos[0], "rb") as f:
+        frame = f.read()
+    rng = np.random.default_rng(8)
+    scene = make_scene(rng, size=SIZE, n_occluders=2, floor_at_zero=True)
+    t, ypr = scene_pose(scene, rng, z_range=(1.3, 1.7))
+    t0 = time.time()
+    big = jpeg_encode((raycast_pano(scene, t, ypr, (2048, 4096))
+                       * 255).astype(np.uint8))
+    t_big = time.time() - t0
+    decode = {"2048x1024": host_ms(lambda: jpeg_decode(frame), 5),
+              "4096x2048": host_ms(lambda: jpeg_decode(big), 3)}
+    if jpeg_decode(big).shape != (2048, 4096, 3):
+        raise AssertionError("the 4096x2048 frame decoded to the wrong shape")
+    log(f"omniscenes tree: {len(panos)} frames (2048x1024 JPEG q95, "
+        f"{len(frame)} B the first) written in {t_write:.2f} s; a 4096x2048 "
+        f"frame ({len(big)} B) ray-cast and encoded in {t_big:.2f} s; host "
+        f"decode ms (median) {decode}; host cores {os.cpu_count()}")
+    return dict(tree=tree, decode_ms=decode)
+
+
+def phase_omni_room(dev, omni):
+    """The OmniScenes room as the CLI loads it under configs/omniscenes.ini:
+    the cloud, the candidate grids and the first frame's images (match_color
+    at 2048x1024, then the resizes; the init image stays 2048x1024).  Then
+    the ladder's decisions there: the stage-1 plan it admits (built in line
+    and timed), the HistPlan it refuses for match_color, and the HistPlan
+    it admits or refuses by its budget with match_color off (built and
+    timed when admitted)."""
+    from piccolo_tpu_torch.config import apply_overrides, cfg_get, parse_ini
+    from piccolo_tpu_torch.data import omniscenes_pano_glob, read_omniscenes
+    from piccolo_tpu_torch.harness import localize as hl
+    from piccolo_tpu_torch.harness.imaging import imread_rgb
+    from piccolo_tpu_torch.init.refine import hist_plan_bytes
+    from piccolo_tpu_torch.kernels.slab_sampling import (
+        default_plan_bytes_cap,
+        plan_bytes_estimate,
+    )
+
+    tree = omni["tree"]
+    cfg = apply_overrides(parse_ini(OMNI_CONFIG), f"data_root={tree}")
+    init = hl.get_init_dict(cfg)
+    hl._seed_everything()
+    pcd = glob.glob(os.path.join(tree, "omniscenes", "pcd", "*.txt"))[0]
+    room = hl._load_room(read_omniscenes, pcd, cfg_get(cfg, "sample_rate", 1),
+                         0.05, dev, init)
+    panos = sorted(glob.glob(omniscenes_pano_glob(tree)))
+    raw = imread_rgb(panos[0])
+    t0 = time.time()
+    orig, img_init, img_main, rgb_used, _ = hl.prepare_omniscenes_images(
+        cfg, raw, room)
+    t_prep = time.time() - t0
+    grids = room["grids"]
+    n_pairs = grids.n_trans * int(grids.rot.shape[0])
+    n_points = int(room["mask"].shape[0])
+    cap = default_plan_bytes_cap(dev)
+    adm = hl._slab_admission(cfg, room, grids, img_init)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    plan = hl._maybe_slab_plan(cfg, room, grids, img_init, sync=True)
+    torch.cuda.synchronize()
+    t_plan = time.time() - t0
+    if plan is None:
+        raise AssertionError(f"the ladder admitted no plan at 2 Mpx: {adm}")
+    layout = "q8" if plan.quant else ("compact" if plan.compact else "f32")
+    shipped_hist = hl._maybe_hist_plan(cfg, room, grids, img_init, sync=True)
+    if shipped_hist is not None:
+        raise AssertionError("match_color must keep the HistPlan off")
+    cfg_off = apply_overrides(cfg, "match_color=False")
+    need = hist_plan_bytes(n_pairs, *img_init.shape[:2])
+    slab_est = plan_bytes_estimate(n_pairs, n_points, compact=plan.compact)
+    side = dict(room)  # the HistPlan is cached here, and dropped with it
+    torch.cuda.synchronize()
+    t0 = time.time()
+    hplan = hl._maybe_hist_plan(cfg_off, side, grids, img_init, sync=True)
+    torch.cuda.synchronize()
+    t_hist = time.time() - t0
+    log(f"omniscenes room: {int(room['mask'].sum())} points padded to "
+        f"{n_points}; {grids.n_trans} translations x {grids.rot.shape[0]} "
+        f"yaws = {n_pairs} pairs, {-(-n_pairs // 128)} groups; init image "
+        f"{img_init.shape[1]}x{img_init.shape[0]}, main "
+        f"{img_main.shape[1]}x{img_main.shape[0]}; first frame's prep "
+        f"(match_color and resizes) {t_prep:.2f} s on the host")
+    log(f"omniscenes ladder: admission {adm}; {layout} plan {plan.nbytes} B "
+        f"(window {plan.window}, block {plan.block}) built in {t_plan:.3f} s; "
+        f"plan cap {cap} B; HistPlan under the shipped config: refused "
+        f"(match_color); with match_color off it needs {need} B + the plan's "
+        f"estimate {slab_est} B against {cap} B: "
+        + (f"admitted, {hplan.nbytes} B built in {t_hist:.3f} s"
+           if hplan is not None else "refused"))
+    return dict(cfg=cfg, room=room, img_init=img_init, img_main=img_main,
+                rgb_used=rgb_used, plan=plan, hplan=hplan, gt=panos[0],
+                n_pairs=n_pairs, layout=layout)
+
+
+def phase_omni_kernels(o, dev):
+    """The kernels at the OmniScenes shapes against their plain versions:
+    the plan's group-sum kernel on every group (counts exact, sums rtol
+    1e-5), group 0 timed against its recounted bound; the block histogram
+    on the first frame's 50 stage-2 candidates x 16 blocks of 256x512
+    pixels from the live splat (bit-exact), timed against its bound and
+    torch.bincount, and again from the HistPlan's planes.  Then the bf16
+    descent table (auto at 2048x1024) against float32 on one query: winner
+    poses within 0.01 m and both within 0.1 m of the truth."""
+    from piccolo_tpu_torch import localize_query
+    from piccolo_tpu_torch.data import obtain_gt_omniscenes
+    from piccolo_tpu_torch.init.refine import (
+        _NB,
+        _point_bins,
+        _query_side,
+        _splat_bins,
+    )
+    from piccolo_tpu_torch.kernels import slab_sampling as slab
+    from piccolo_tpu_torch.kernels.block_histogram import (
+        block_histogram,
+        block_histogram_plain,
+    )
+    from piccolo_tpu_torch.ops.sampling import resolve_descent_table
+
+    plan, room = o["plan"], o["room"]
+    if plan.compact:
+        raise AssertionError("the OmniScenes plan was expected in the f32 "
+                             f"layout, got {o['layout']}")
+    img = torch.as_tensor(o["img_init"], device=dev)
+    H, W = img.shape[0], img.shape[1]
+    table = slab.slab_table(img, window=plan.window)
+    err = 0.0
+    for g, (f, w) in enumerate(zip(plan.fields, plan.windows)):
+        got = slab.slab_group_sums_f32(table, f, w, plan.window)
+        want = slab.slab_group_sums_f32_plain(table, f, w, plan.window)
+        torch.cuda.synchronize()
+        if not torch.equal(got[1], want[1]):
+            raise AssertionError(f"f32 slab kernel counts differ from the "
+                                 f"plain version in OmniScenes group {g}")
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+        err = max(err, float((got[0] - want[0]).abs().max()))
+    f, w = plan.fields[0], plan.windows[0]
+    nb, _, block = f.shape
+    samples, pads, pad_blocks, n_win = _f32_plan_stats(f, w)
+    nbytes, _ = _f32_bytes(samples, pads, nb, n_win, plan.window)
+    bound, by = _bound(nbytes, samples * F32_OPS_PER_SAMPLE)
+    slab_row = dict(
+        name="slab_group_sums_f32.omniscenes", route="cuda",
+        source="piccolo_tpu_torch/kernels/csrc/slab_sampling.cu",
+        replaces="piccolo_tpu/kernels/slab_sampling.py:677",
+        max_abs_err=err,
+        ms=cuda_ms(lambda: slab.slab_group_sums_f32(table, f, w, plan.window)),
+        plain_ms=cuda_ms(lambda: slab.slab_group_sums_f32_plain(
+            table, f, w, plan.window), reps=5),
+        bound_ms=bound, bound_by=by, library_ms=None)
+    log(f"omniscenes f32 slab kernel vs plain on all {len(plan.fields)} "
+        f"groups: counts exact, max |sum err| {err:.3g}; group 0 (nb={nb}, "
+        f"block={block}, {samples} real samples, {pads} pad slots, "
+        f"{pad_blocks} blocks with a pad slot 0, {n_win} distinct windows): "
+        f"{slab_row['ms']:.4f} ms, bound {bound:.4f} ms ({nbytes} B "
+        f"recounted)")
+
+    # stage 1's top 50 pairs, then their live splat as stage 2 bins it
+    grids = room["grids"]
+    T, R = grids.trans.shape[0], grids.rot.shape[0]
+    scores = slab.slab_pair_scores(img, plan)
+    scores = torch.cat([scores, torch.full((T * R - plan.n_pairs,), math.inf,
+                                           device=dev)])
+    k1 = int(o["cfg"].num_intermediate)
+    idx = torch.sort(scores, stable=True).indices[:k1]
+    pair_t, pair_r = slab.make_pairs(grids.trans, grids.rot)
+    t1, r1 = pair_t[idx], pair_r[idx]
+    q = _query_side(img, 4, 4)
+    rgb_bins = _point_bins(room["rgb"], _NB)
+    pbin = torch.cat([_splat_bins(room["xyz"], rgb_bins, t1[c:c + 4],
+                                  r1[c:c + 4], room["mask"], H, W)
+                      for c in range(0, k1, 4)])
+
+    def rows_of(pbin):
+        valid = (pbin >= 0) & (pbin < _NB) & q.pix_ok
+        ids = q.block_layout(pbin.clamp(0, _NB - 1).to(torch.int32))
+        msk = q.block_layout(valid.to(torch.float32))
+        return (ids.reshape(-1, ids.shape[-1]).contiguous(),
+                msk.reshape(-1, msk.shape[-1]).contiguous())
+
+    ids, msk = rows_of(pbin)
+    del pbin
+    got = block_histogram(ids, msk)
+    want = block_histogram_plain(ids, msk)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"block histogram differs at {tuple(ids.shape)}")
+    B, N = ids.shape
+    flat = (torch.arange(B, device=dev)[:, None] * _NB + ids).reshape(-1)
+    bh_bound, bh_by = _bound(ids.numel() * 8 + B * _NB * 4, ids.numel() * 2)
+    bh_row = dict(
+        name="block_histogram.omniscenes", route="cuda",
+        source="piccolo_tpu_torch/kernels/csrc/block_histogram.cu",
+        replaces="piccolo_tpu/kernels/histogram_mxu.py:90",
+        max_abs_err=float((got - want).abs().max()),
+        ms=cuda_ms(lambda: block_histogram(ids, msk)),
+        plain_ms=cuda_ms(lambda: block_histogram_plain(ids, msk), reps=5),
+        bound_ms=bh_bound, bound_by=bh_by,
+        library_ms=cuda_ms(lambda: torch.bincount(
+            flat, weights=msk.reshape(-1), minlength=B * _NB), reps=5))
+    del flat
+    log(f"omniscenes block histogram vs plain at {(B, N)} from the live "
+        f"splat of {k1} candidates: bit-exact; {bh_row['ms']:.4f} ms (plain "
+        f"{bh_row['plain_ms']:.4f}, bincount {bh_row['library_ms']:.4f}, "
+        f"bound {bh_bound:.4f} by {bh_by}, {ids.numel() * 8 + B * _NB * 4} B)")
+    if o["hplan"] is not None:
+        hp = o["hplan"]
+        planes = hp.planes[idx.clamp_max(hp.n_pairs - 1)].to(torch.int32)
+        hids, hmsk = rows_of(planes)
+        # pixels where both sides agree on the bin, or both mask it out
+        same = float((((hids == ids) & (hmsk == msk)) | ((hmsk == 0) & (msk == 0)))
+                     .to(torch.float32).mean())
+        got = block_histogram(hids, hmsk)
+        torch.cuda.synchronize()
+        if not torch.equal(got, block_histogram_plain(hids, hmsk)):
+            raise AssertionError("block histogram differs on HistPlan planes")
+        log(f"omniscenes block histogram from the HistPlan's planes: "
+            f"bit-exact against plain, {cuda_ms(lambda: block_histogram(hids, hmsk)):.4f} "
+            f"ms; bins equal to the live splat's at {same:.6f} of pixels")
+        del planes, hids, hmsk
+    del ids, msk, got, want
+    o["hplan"] = None
+    torch.cuda.empty_cache()
+
+    # the bf16 descent table (auto at 2048x1024) against float32
+    gt_t, _ = obtain_gt_omniscenes(o["gt"])
+    cfg = o["cfg"]
+    res = {}
+    for table_dtype in ("auto", "float32"):
+        r = localize_query(
+            o["img_init"], o["img_main"], room["xyz"], o["rgb_used"],
+            grids.trans, grids.rot, grids.valid, room["lo"], room["hi"],
+            room["mask"], num_intermediate=cfg.num_intermediate,
+            num_input=cfg.num_input, num_split_h=4, num_split_w=4,
+            num_iter=cfg.num_iter, lr=cfg.lr, patience=cfg.patience,
+            factor=cfg.factor, masked=True, plan=plan,
+            descent_table=table_dtype, device=dev)
+        res[table_dtype] = (int(r.winner), r.t.cpu().numpy())
+    dt = float(np.abs(res["auto"][1] - res["float32"][1]).max())
+    errs = {k: float(np.linalg.norm(v[1] - gt_t.ravel())) for k, v in res.items()}
+    log(f"omniscenes descent table: auto resolves to "
+        f"{resolve_descent_table('auto', *o['img_main'].shape[:2])}; "
+        f"winner {res['auto'][0]} (bf16) / {res['float32'][0]} (f32), "
+        f"winners {dt:.4g} m apart, t_err {errs}")
+    # two starts can descend into the same basin, so the winner's index may
+    # flip between the tables while its pose stays put: hold the poses
+    if not (dt < 0.01 and max(errs.values()) < 0.1):
+        raise AssertionError(f"bf16 and f32 descent tables disagree: {res}, "
+                             f"t_err {errs}")
+    return [slab_row, bh_row]
+
+
+def _omni_csv(log_dir):
+    with open(os.path.join(log_dir, "omniscenes_results.csv"), newline="") as f:
+        return list(csv.reader(f))[1:]
+
+
+def phase_omni_cli(omni, dev):
+    """The shipped configs/omniscenes.ini through the CLI on the OmniScenes
+    tree, fused (through the ladder) and with fused = False; each must reach
+    accuracy >= 0.75 under 0.1 m / 5 deg, and the two runs' winners must
+    agree within 1e-3 m.  Returns the fused run's launches per kernel."""
+    from piccolo_tpu_torch.kernels import slab_sampling as slab
+    from piccolo_tpu_torch.kernels.block_histogram import block_histogram
+    from piccolo_tpu_torch.main import main as cli_main
+
+    kernels = {fn.__name__: fn for fn in (
+        slab.slab_group_sums_f32, slab.slab_group_sums_compact,
+        slab.slab_group_sums_q8, block_histogram)}
+    n_q, out, winners = OMNI_QUERIES, {}, {}
+    for run, extra in (("fused", ""), ("staged", ",fused=False")):
+        for fn in kernels.values():
+            fn.launches = 0
+        log_dir = os.path.join(os.path.dirname(omni["tree"]), "log_omni_" + run)
+        buf = io.StringIO()
+        t0 = time.time()
+        try:
+            with contextlib.redirect_stdout(buf):
+                acc = cli_main(["--config", OMNI_CONFIG, "--log", log_dir,
+                                "--no-tensorboard", "--device", dev.type,
+                                "--override", f"data_root={omni['tree']}{extra}"])
+        except Exception:
+            print(buf.getvalue()[-6000:], flush=True)
+            raise
+        wall = time.time() - t0
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        routes = [ln.split(":", 1)[1].strip()
+                  for ln in buf.getvalue().splitlines()
+                  if ln.startswith("route :")]
+        rows = _omni_csv(log_dir)
+        winners[run] = np.array([[float(v) for v in r_[4].split()]
+                                 for r_ in rows])
+        t_err = [round(float(r_[6]), 4) for r_ in rows]
+        r_err = [round(float(r_[7]), 3) for r_ in rows]
+        q_s = float(np.median([float(r_[8]) for r_ in rows]))
+        log(f"omniscenes cli {run}: routes {routes}; accuracy {acc}; t_err "
+            f"(m) {t_err}; r_err (deg) {r_err}; median time (s) {q_s:.4f}; "
+            f"wall {wall:.2f} s; launches {launches}")
+        if len(rows) != n_q or len(routes) != n_q:
+            raise AssertionError(f"omniscenes {run}: {len(rows)} rows, "
+                                 f"{len(routes)} routes")
+        if not acc >= 0.75:
+            raise AssertionError(f"omniscenes {run}: accuracy {acc}")
+        if launches["block_histogram"] != n_q:
+            raise AssertionError(f"omniscenes {run}: block_histogram launched "
+                                 f"{launches['block_histogram']} times for "
+                                 f"{n_q} queries")
+        out[run] = dict(launches=launches, routes=routes, s=q_s, acc=acc)
+    dt = float(np.abs(winners["fused"] - winners["staged"]).max())
+    log(f"omniscenes cli fused vs staged: winners within {dt:.3g} m")
+    if not dt < 1e-3:
+        raise AssertionError(f"fused and staged winners differ by {dt} m")
+    f32 = out["fused"]["launches"]["slab_group_sums_f32"]
+    if f32 == 0 or out["staged"]["launches"]["slab_group_sums_f32"]:
+        raise AssertionError(f"the f32 kernel launched {f32} times fused and "
+                             f"{out['staged']['launches']['slab_group_sums_f32']} "
+                             "staged")
+    return out
+
+
+def phase_omni_profile(o, dev, median_s):
+    """One OmniScenes query of the fused path (the room's plan, the first
+    frame) under torch.profiler."""
+    from piccolo_tpu_torch import localize_query
+
+    room, cfg = o["room"], o["cfg"]
+    grids = room["grids"]
+
+    def run():
+        localize_query(
+            o["img_init"], o["img_main"], room["xyz"], o["rgb_used"],
+            grids.trans, grids.rot, grids.valid, room["lo"], room["hi"],
+            room["mask"], num_intermediate=cfg.num_intermediate,
+            num_input=cfg.num_input, num_split_h=4, num_split_w=4,
+            num_iter=cfg.num_iter, lr=cfg.lr, patience=cfg.patience,
+            factor=cfg.factor, masked=True, plan=o["plan"], device=dev)
+
+    run()  # warm-up
+    profile_query("omniscenes", run, median_s)
+
+
 def timed(name, fn, *args):
     t0 = time.time()
     out = fn(*args)
@@ -977,6 +1435,7 @@ def main():
     timed("small reference", phase_small_reference, dev)
     _, median_s = timed("main path", phase_main_path, room, dev)
     timed("profile", phase_profile, room, dev, median_s)
+    timed("speed modes", phase_speed_modes, room, dev)
     del room
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="piccolo_cli_")
@@ -985,9 +1444,27 @@ def main():
         rows += timed("layout kernels", phase_layout_kernels, cli, dev)
         torch.cuda.empty_cache()
         launched = timed("cli", phase_cli, cli, dev)
+        del cli
+        torch.cuda.empty_cache()
+        omni = timed("omniscenes tree", phase_omni_tree, tmp)
+        o = timed("omniscenes room", phase_omni_room, dev, omni)
+        omni_rows = timed("omniscenes kernels", phase_omni_kernels, o, dev)
+        runs = timed("omniscenes cli", phase_omni_cli, omni, dev)
+        timed("omniscenes profile", phase_omni_profile, o, dev,
+              runs["fused"]["s"])
+        del o
+        fused = runs["fused"]["launches"]
+        for row in omni_rows:
+            kernel = row["name"].split(".")[0]
+            row["launches"] = fused[kernel]
+            row["launches_per_query"] = fused[kernel] / OMNI_QUERIES
+            row["path"] = "omniscenes cli fused"
+        rows += omni_rows
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for row in rows:
+        if "path" in row:
+            continue
         # launches: the CLI run that drives the kernel; the masked
         # histogram runs on no query path
         n, n_q, run = launched.get(row["name"], (0, None, None))

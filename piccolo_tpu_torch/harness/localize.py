@@ -1,10 +1,14 @@
-"""Stanford2D-3D-S evaluation harness (port of
-piccolo_tpu/harness/localize.py, the single-device fused path).
+"""Stanford2D-3D-S and OmniScenes evaluation harnesses (port of
+piccolo_tpu/harness/localize.py, single device).
 
 Per query: file discovery, cloud loading on room change, colour
 preprocessing, the out-of-room gate, the fused query
-(``pipeline.localize_query``), error metrics, accuracy accounting and the
-CSV / TensorBoard / image artifacts, with the reference's schemas.
+(``pipeline.localize_query``) or the staged path (``init.make_input`` then
+``solver.descend``), error metrics, accuracy accounting and the CSV /
+TensorBoard / image artifacts, with the reference's schemas.  The staged
+path runs where the JAX package takes it: ``fused = False``,
+``sample_rate_for_init``; on the run's own device.  ``descent_prune_*``
+and ``descent_multires_*`` reach the descent on both paths.
 
 Stage 1 runs through the JAX package's plan admission ladder
 (``_slab_admission``): slab off, or the f32 plan, demoted to the compact
@@ -21,9 +25,8 @@ own build and launch errors are never caught.
 
 The CPU rule of the JAX package (``auto`` plans off on the CPU backend)
 becomes: ``auto`` plans are off when the room lives on the CPU.  Config
-keys of later slices (OmniScenes, the staged path, multi-device, descent
-prune and multires, profiling, the executable cache) raise
-``NotImplementedError`` naming the slice; none is ignored.
+keys of later slices (tracking, multi-device, profiling, the executable
+cache) raise ``NotImplementedError`` naming the slice; none is ignored.
 """
 
 from __future__ import annotations
@@ -33,24 +36,28 @@ import os
 import random
 import threading
 import time
+import warnings
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from .. import data as data_mod
-from ..color import color_mod
+from ..color import color_match, color_mod
 from ..config import cfg_get
 from ..convert import cloud_from_numpy
 from ..device import resolve_device
 from ..init.candidates import generate_rot_points, generate_trans_points
-from ..init.refine import check_criterion
+from ..init.refine import SUPPORTED_CRITERIA, check_criterion, make_input
 from ..ops.pano import render_pano
 from ..ops.quantile import cloud_bounds, outside_box
 from ..ops.rotation import rot_from_ypr
 from ..pipeline import localize_query
+from ..solver import descend
 from .imaging import imread_rgb, resize
 from .metrics import (
+    OMNISCENES_R_THRESH_DEG,
+    OMNISCENES_T_THRESH,
     STANFORD_R_THRESH_DEG,
     STANFORD_T_THRESH,
     AccuracyTracker,
@@ -58,6 +65,7 @@ from .metrics import (
     translation_error,
 )
 from .outputs import (
+    OMNISCENES_COLUMNS,
     STANFORD_COLUMNS,
     CsvSummary,
     ScalarSummaries,
@@ -67,7 +75,10 @@ from .outputs import (
 )
 from .prefetch import AsyncWriter, Prefetcher
 
-__all__ = ["localize_stanford", "get_init_dict", "prepare_stanford_images"]
+__all__ = ["localize_stanford", "localize_omniscenes", "get_init_dict",
+           "prepare_stanford_images", "prepare_omniscenes_images",
+           "finish_omniscenes_images", "resize_ablate_omniscenes",
+           "synth_ablate"]
 
 # One slab-plan build at a time, process-wide: an orphaned background build
 # of the previous room keeps its memory until it finishes, and two near-cap
@@ -206,24 +217,192 @@ def prepare_stanford_images(cfg, orig: np.ndarray, room: Dict):
     return img_init, img_main, rgb_used, prep_timed
 
 
+def synth_ablate(orig: np.ndarray, const=None, gamma=None, wb=None):
+    """The synthetic illumination ablations (reference localize.py:384-393)
+    on a uint8 image: brightness divisor, gamma curve, per-channel white-
+    balance gains (gains above 1 saturate at 255 instead of wrapping)."""
+    if const is not None:
+        orig = (orig // const).astype(np.uint8)
+    if gamma is not None:
+        orig = (((orig / 255.0) ** gamma) * 255).astype(np.uint8)
+    if wb is not None:
+        scaled = orig.astype(np.float64)
+        scaled[..., 0] *= wb[0]
+        scaled[..., 1] *= wb[1]
+        scaled[..., 2] *= wb[2]
+        orig = np.clip(scaled, 0, 255).astype(np.uint8)
+    return orig
+
+
+def resize_ablate_omniscenes(cfg, raw: np.ndarray) -> np.ndarray:
+    """The uint8 head of the OmniScenes prep: the 2048x1024 resize
+    (reference localize.py:381) and the synthetic ablations."""
+    orig = resize(raw, (2048, 1024))
+    return synth_ablate(
+        orig,
+        const=cfg_get(cfg, "synth_const"),
+        gamma=cfg_get(cfg, "synth_gamma"),
+        wb=((cfg.synth_r, cfg.synth_g, cfg.synth_b)
+            if cfg_get(cfg, "synth_wb") else None),
+    )
+
+
+def prepare_omniscenes_images(cfg, raw: np.ndarray, room: Dict):
+    """Per-query OmniScenes image preprocessing (reference localize.py:
+    380-410) from the decoded native-size uint8 RGB panorama ``raw``.
+
+    Returns ``(orig, img_init, img_main, rgb_used, prep_timed)``: ``orig``
+    is the colour-processed uint8 image the starting-point dumps render
+    against, ``prep_timed`` the main-resize wall time."""
+    return finish_omniscenes_images(cfg, resize_ablate_omniscenes(cfg, raw),
+                                    room)
+
+
+def finish_omniscenes_images(cfg, orig: np.ndarray, room: Dict):
+    """The colour and resize tail of :func:`prepare_omniscenes_images`:
+    ``match_color`` then ``sharpen_color`` at 2048x1024, each followed by
+    the reference's uint8 requantisation, then the init resize (the
+    reference halves ``init_downsample`` "to match resolution with
+    stanford", localize.py:349-350) and the main resize, which the
+    reference's per-query timer covers."""
+    rgb_used = room["rgb"]
+    mod_img = orig.astype(np.float32) / 255.0
+    if cfg_get(cfg, "match_color", False):
+        mod_img = color_match(mod_img, room["rgb_np"])
+        orig = (mod_img * 255).astype(np.uint8)
+    if cfg_get(cfg, "sharpen_color", False):
+        mod_img, rgb_mod = color_mod(mod_img, room["rgb_np"],
+                                     cfg_get(cfg, "num_bins", 256))
+        orig = (mod_img * 255).astype(np.uint8)
+        rgb_used = _pad_rgb(rgb_mod, int(room["mask"].shape[0]),
+                            room["device"])
+    init_dh = max(cfg_get(cfg, "init_downsample_h", 1) // 2, 1)
+    init_dw = max(cfg_get(cfg, "init_downsample_w", 1) // 2, 1)
+    main_dh = cfg_get(cfg, "main_downsample_h", 1)
+    main_dw = cfg_get(cfg, "main_downsample_w", 1)
+    H0, W0 = orig.shape[:2]
+    img_init = resize(orig, (W0 // init_dw, H0 // init_dh)).astype(np.float32) / 255.0
+    rt0 = time.time()
+    img_main = resize(orig, (W0 // main_dw, H0 // main_dh)).astype(np.float32) / 255.0
+    prep_timed = time.time() - rt0
+    return orig, img_init, img_main, rgb_used, prep_timed
+
+
+_mode_warned: set = set()
+
+
+def _warn_once(key: str, msg: str) -> None:
+    if key not in _mode_warned:
+        _mode_warned.add(key)
+        warnings.warn(msg)
+
+
+def _cfg_prune(cfg, want_traj: bool = False):
+    """``descent_prune_iter``/``descent_prune_keep`` as ``(prune_iter,
+    prune_keep)``, or None when off.  A visualize query needs every start's
+    frames, so it runs the full descent (warned once)."""
+    k = int(cfg_get(cfg, "descent_prune_iter", 0) or 0)
+    if k <= 0:
+        return None
+    m = int(cfg_get(cfg, "descent_prune_keep", 2) or 0)
+    if want_traj:
+        _warn_once("traj", "visualize queries run the full descent (pruned "
+                   "candidates have no per-iteration frames) — "
+                   "descent_prune_* ignored")
+        return None
+    return (k, m)
+
+
+def _cfg_multires(cfg, want_traj: bool = False):
+    """``descent_multires_iter``/``descent_multires_stride`` as
+    ``(low_iters, stride)``, or None when off; a visualize query runs the
+    full-resolution descent (warned once).  Combined with descent prune it
+    raises in the solver."""
+    k = int(cfg_get(cfg, "descent_multires_iter", 0) or 0)
+    if k <= 0:
+        return None
+    s = int(cfg_get(cfg, "descent_multires_stride", 2) or 2)
+    if want_traj:
+        _warn_once("traj_mr", "visualize queries run the full-resolution "
+                   "descent — descent_multires_* ignored")
+        return None
+    return (k, s)
+
+
+def _use_fused(cfg, init_dict) -> bool:
+    """Whether the fused query serves this config; ``fused = False`` and an
+    init-only subsample (``sample_rate_for_init``) take the staged path."""
+    return bool(
+        cfg_get(cfg, "fused", True)
+        and init_dict.get("sample_rate_for_init") is None
+        and cfg_get(cfg, "criterion", "loss_histogram") in SUPPORTED_CRITERIA
+    )
+
+
+def _solve_query(img_main, cache, rgb_used, trans0, ypr0, cfg,
+                 want_traj: bool):
+    """The staged path's descent from ``make_input``'s starts on the room's
+    device; returns (SolveResult, trajectory or None)."""
+    out = descend(
+        img_main, cache["xyz"], rgb_used, trans0, ypr0, cache["lo"],
+        cache["hi"], cache["mask"],
+        num_iter=cfg_get(cfg, "num_iter", 100), lr=cfg_get(cfg, "lr", 0.1),
+        patience=cfg_get(cfg, "patience", 5),
+        factor=cfg_get(cfg, "factor", 0.9), masked=True, trajectory=want_traj,
+        table_dtype=cfg_get(cfg, "descent_table", "auto"),
+        wrap=bool(cfg_get(cfg, "seam_wrap", False)),
+        prune=_cfg_prune(cfg, want_traj), multires=_cfg_multires(cfg, want_traj),
+        device=cache["device"],
+    )
+    return out if want_traj else (out, None)
+
+
+def _run_staged(img_init, img_main, cache, rgb_used, cfg, init_dict,
+                want_traj=False):
+    """One query through the staged path; returns (result, traj, starts)
+    with ``result`` a SolveResult and ``starts`` make_input's (t, ypr)."""
+    trans0, rot0 = make_input(
+        img_init, cache["xyz"], rgb_used, cfg_get(cfg, "num_input", 6),
+        init_dict, cfg_get(cfg, "criterion", "loss_histogram"),
+        cfg_get(cfg, "num_intermediate", 20), point_mask=cache["mask"],
+        wrap=bool(cfg_get(cfg, "seam_wrap", False)), device=cache["device"],
+    )
+    res, traj = _solve_query(img_main, cache, rgb_used, trans0, rot0, cfg,
+                             want_traj)
+    return res, traj, (trans0, rot0)
+
+
+def _localize_one(b, cache, cfg, init_dict, fused: bool, want_traj: bool):
+    """One query by the fused or the staged path: a dict with the winner
+    index ``k``, its ``t``, ``R`` and ``loss`` on the host, the starting
+    poses ``trans0``/``rot0`` (numpy), the printed ``route`` and ``traj``
+    (None unless ``want_traj``)."""
+    if fused:
+        fres, route = _run_fused(b["img_init"], b["img_main"], cache,
+                                 b["rgb_used"], cfg, init_dict,
+                                 cache["grids"], want_traj=want_traj)
+        traj = None
+        if want_traj:
+            fres, traj = fres
+        return dict(k=int(fres.winner), t=fres.t.cpu().numpy(),
+                    R=fres.rot.cpu().numpy(), loss=float(fres.loss),
+                    trans0=fres.start_t.cpu().numpy(),
+                    rot0=fres.start_ypr.cpu().numpy(), route=route, traj=traj)
+    res, traj, (trans0, rot0) = _run_staged(
+        b["img_init"], b["img_main"], cache, b["rgb_used"], cfg, init_dict,
+        want_traj)
+    k = int(torch.argmin(res.loss))
+    return dict(k=k, t=res.t[k].cpu().numpy(), R=res.rot[k].cpu().numpy(),
+                loss=float(res.loss[k]), trans0=trans0, rot0=rot0,
+                route="staged: make_input, then descend", traj=traj)
+
+
 def _check_config(cfg, init_dict) -> None:
     """Refuse, loudly, the keys whose paths belong to later slices."""
     if cfg_get(cfg, "n_devices") not in (None, 0, 1):
         raise _unported("n_devices > 1 (one query sharded over a mesh)",
                         "multi-device")
-    if not cfg_get(cfg, "fused", True):
-        raise _unported("fused = False (the staged path, make_input)",
-                        "staged-path")
-    if init_dict.get("sample_rate_for_init") is not None:
-        raise _unported("sample_rate_for_init (the staged path, make_input)",
-                        "staged-path")
     check_criterion(cfg_get(cfg, "criterion", "loss_histogram"))
-    if int(cfg_get(cfg, "descent_prune_iter", 0) or 0) > 0:
-        raise _unported("descent_prune_* (the pruned descent)",
-                        "descent prune and multires")
-    if int(cfg_get(cfg, "descent_multires_iter", 0) or 0) > 0:
-        raise _unported("descent_multires_* (the multi-resolution descent)",
-                        "descent prune and multires")
     if cfg_get(cfg, "profile_dir"):
         raise _unported("profile_dir (per-query traces)", "profiling")
     if cfg_get(cfg, "exec_cache_dir"):
@@ -731,7 +910,9 @@ def _run_fused(img_init, img_main, cache, rgb_used, cfg, init_dict, grids,
         plan_refresh_rgb=plan is not None and rgb_used is not cache["rgb"],
         descent_table=cfg_get(cfg, "descent_table", "auto"),
         seam_wrap=bool(cfg_get(cfg, "seam_wrap", False)),
-        trajectory=want_traj, device=cache["device"], **kw,
+        trajectory=want_traj, descent_prune=_cfg_prune(cfg, want_traj),
+        descent_multires=_cfg_multires(cfg, want_traj),
+        device=cache["device"], **kw,
     )
     return out, _plan_route(plan, hist_plan, n_real_pairs, criterion)
 
@@ -753,14 +934,9 @@ def _seed_everything():
     random.seed(2)
 
 
-# ---------------------------------------------------------------------------
-# Stanford2D-3D-S
-
-
-def localize_stanford(cfg, writer=None, log_dir: str = "./log",
-                      device="cuda") -> float:
-    """Evaluate every Stanford2D-3D-S query panorama on ``device``.
-    Returns the accuracy."""
+def _setup_run(cfg, device, log_dir):
+    """The checks and set-up both harnesses share; returns (init_dict,
+    device, fused)."""
     init_dict = get_init_dict(cfg)
     _check_config(cfg, init_dict)
     dev = _room_device(cfg, device)
@@ -769,7 +945,33 @@ def localize_stanford(cfg, writer=None, log_dir: str = "./log",
         # the reference's always-on anomaly detection (localize.py:94)
         torch.autograd.set_detect_anomaly(True)
     os.makedirs(log_dir, exist_ok=True)
+    return init_dict, dev, _use_fused(cfg, init_dict)
 
+
+def _load_room(read_fn, pcd_name, sample_rate, out_q, dev, init_dict=None):
+    """A room's cache: the cloud on the host and padded on ``dev``, its
+    clamp box, and (``init_dict`` given: the fused path) its grids."""
+    xyz_np, rgb_np = read_fn(pcd_name, sample_rate)
+    xyz_np = xyz_np.astype(np.float32)
+    rgb_np = rgb_np.astype(np.float32)
+    xyz_d, rgb_d, mask_d = _pad_cloud(xyz_np, rgb_np, dev)
+    lo, hi = _order_bounds(xyz_np, out_q)
+    room = dict(pcd=pcd_name, xyz_np=xyz_np, rgb_np=rgb_np, xyz=xyz_d,
+                rgb=rgb_d, mask=mask_d, lo=lo, hi=hi, device=dev)
+    if init_dict is not None:
+        room["grids"] = _FusedGrids(xyz_np, init_dict, dev)
+    return room
+
+
+# ---------------------------------------------------------------------------
+# Stanford2D-3D-S
+
+
+def localize_stanford(cfg, writer=None, log_dir: str = "./log",
+                      device="cuda") -> float:
+    """Evaluate every Stanford2D-3D-S query panorama on ``device``.
+    Returns the accuracy."""
+    init_dict, dev, fused = _setup_run(cfg, device, log_dir)
     data_root = cfg_get(cfg, "data_root", "./data")
     area_num = cfg_get(cfg, "area")
     sample_rate = cfg_get(cfg, "sample_rate", 1)
@@ -832,18 +1034,10 @@ def localize_stanford(cfg, writer=None, log_dir: str = "./log",
         room_no = img_name.split("_")[3]
         pcd_name = data_mod.stanford_pcd_path(data_root, area, room_type, room_no)
         if prep_cache["pcd"] != pcd_name:
-            xyz_np, rgb_np = data_mod.read_stanford(pcd_name, sample_rate)
-            xyz_np = xyz_np.astype(np.float32)
-            rgb_np = rgb_np.astype(np.float32)
-            xyz_d, rgb_d, mask_d = _pad_cloud(xyz_np, rgb_np, dev)
-            lo, hi = _order_bounds(xyz_np, out_q)
-            room = dict(
-                pcd=pcd_name, xyz_np=xyz_np, rgb_np=rgb_np,
-                xyz=xyz_d, rgb=rgb_d, mask=mask_d, lo=lo, hi=hi, device=dev,
-                grids=_FusedGrids(xyz_np, init_dict, dev),
-            )
             prep_cache.clear()
-            prep_cache.update(pcd=pcd_name, room=room)
+            prep_cache.update(pcd=pcd_name, room=_load_room(
+                data_mod.read_stanford, pcd_name, sample_rate, out_q, dev,
+                init_dict if fused else None))
         room = prep_cache["room"]
 
         orig = imread_rgb(filename)  # uint8 RGB
@@ -890,18 +1084,9 @@ def localize_stanford(cfg, writer=None, log_dir: str = "./log",
                     continue
 
                 start = time.time()
-                fres, route = _run_fused(
-                    img_init, img_main, cache, rgb_used, cfg, init_dict,
-                    cache["grids"], want_traj=vis,
-                )
-                if vis:
-                    fres, traj = fres
-                else:
-                    traj = None
-                k = int(fres.winner)
-                t = fres.t.cpu().numpy()
-                R = fres.rot.cpu().numpy()
-                loss_k = float(fres.loss)
+                q = _localize_one(b, cache, cfg, init_dict, fused, vis)
+                k, t, R, loss_k = q["k"], q["t"], q["R"], q["loss"]
+                route, traj = q["route"], q["traj"]
                 elapsed = time.time() - start + b["prep_timed"]
 
                 t_err = translation_error(gt_trans, t)
@@ -966,4 +1151,158 @@ def localize_stanford(cfg, writer=None, log_dir: str = "./log",
     print(f"Final Accuracy : {tracker.accuracy}")
     print(f"failed {len(failed)} rooms : {failed}\n")
     print(f"skipped {len(skipped)} rooms : {skipped}")
+    return tracker.accuracy
+
+
+# ---------------------------------------------------------------------------
+# OmniScenes
+
+
+def localize_omniscenes(cfg, writer=None, log_dir: str = "./log",
+                        device="cuda") -> float:
+    """Evaluate every OmniScenes query panorama on ``device``.  Returns the
+    accuracy.  ``tracking = True`` belongs to a later slice and raises."""
+    if cfg_get(cfg, "tracking", False):
+        raise _unported("tracking = True", "tracking")
+    init_dict, dev, fused = _setup_run(cfg, device, log_dir)
+    data_root = cfg_get(cfg, "data_root", "./data")
+    split_name = cfg_get(cfg, "split_name", "extreme")
+    room_name = cfg_get(cfg, "room_name")
+    scene_number = cfg_get(cfg, "scene_number")
+    sample_rate = cfg_get(cfg, "sample_rate", 1)
+    out_q = cfg_get(cfg, "out_of_room_quantile", 0.05)
+    # no visualize GIFs: the reference's OmniScenes visualize crashes
+    # (omniloc.py:61); its visual artifact is save_starting_point
+    save_starts = cfg_get(cfg, "save_starting_point", False)
+
+    filenames = sorted(
+        globlib.glob(data_mod.omniscenes_pano_glob(data_root, split_name)))
+    if room_name is not None:
+        rooms = [room_name] if isinstance(room_name, str) else room_name
+        filenames = [f for f in filenames if any(r in f for r in rooms)]
+    if scene_number is not None:
+        filenames = [f for f in filenames if f"scene_{scene_number}" in f]
+    filenames = _shard_queries(cfg, filenames)
+
+    tracker = AccuracyTracker(OMNISCENES_T_THRESH, OMNISCENES_R_THRESH_DEG)
+    summaries = ScalarSummaries(writer)
+    csv_out = CsvSummary(
+        os.path.join(log_dir, "omniscenes_results.csv"),
+        OMNISCENES_COLUMNS,
+        resume=cfg_get(cfg, "resume", False),
+    )
+    continue_on_error = cfg_get(cfg, "continue_on_error", False)
+    failed, skipped = [], []
+    prefetch_on = cfg_get(cfg, "host_prefetch", True)
+    prep_cache = {"pcd": None}
+
+    def _prepare(filename):
+        video_name = filename.split(os.sep)[-2]
+        img_seq = os.path.basename(filename)
+        room_type = video_name.split("_")[1]
+        room_no = video_name.split("_")[2]
+        pcd_name = data_mod.omniscenes_pcd_path(data_root, room_type, room_no)
+        if prep_cache["pcd"] != pcd_name:
+            prep_cache.clear()
+            prep_cache.update(pcd=pcd_name, room=_load_room(
+                data_mod.read_omniscenes, pcd_name, sample_rate, out_q, dev,
+                init_dict if fused else None))
+        room = prep_cache["room"]
+        raw = imread_rgb(filename)  # the JPEG decode, on this thread
+        gt_trans, gt_rot = data_mod.obtain_gt_omniscenes(filename)
+        orig, img_init, img_main, rgb_used, prep_timed = (
+            prepare_omniscenes_images(cfg, raw, room))
+        return dict(
+            video_name=video_name, img_seq=img_seq,
+            img_name=f"{video_name}/{img_seq}", room=room, orig=orig,
+            img_init=img_init, img_main=img_main, rgb_used=rgb_used,
+            gt_trans=gt_trans, gt_rot=gt_rot, prep_timed=prep_timed,
+        )
+
+    pending_idx = [
+        i for i, f in enumerate(filenames)
+        if f"{f.split(os.sep)[-2]}/{os.path.basename(f)}" not in csv_out.done
+    ]
+    pending = [filenames[i] for i in pending_idx]
+    prev_room = None
+    with AsyncWriter(enabled=prefetch_on) as artifacts:
+        for trial, (filename, outcome) in zip(
+            pending_idx, Prefetcher(pending, _prepare, enabled=prefetch_on)
+        ):
+            try:
+                b = Prefetcher.unwrap(outcome)
+                img_name = b["img_name"]
+                cache = b["room"]
+                if prev_room is not None and prev_room is not cache:
+                    _drop_slab_plans(prev_room)
+                prev_room = cache
+                gt_trans, gt_rot = b["gt_trans"], b["gt_rot"]
+                H0, W0 = b["orig"].shape[:2]
+
+                if _outside_bounds(cache["lo"], cache["hi"], gt_trans):
+                    print(f"corrupted file : {filename}, gt_trans is out of the room\n")
+                    skipped.append(filename)
+                    summaries.add_text("skipped rooms", filename)
+                    csv_out.write([img_name, fmt_array(gt_trans),
+                                   fmt_array(gt_rot), 1])
+                    continue
+
+                start = time.time()
+                q = _localize_one(b, cache, cfg, init_dict, fused, False)
+                t, R = q["t"], q["R"]
+                if save_starts:
+                    # rendered with the colour-processed cloud at half the
+                    # 2048x1024 size, as the reference renders its starting
+                    # points (localize.py:457-471, after the rebinds at
+                    # :396-410)
+                    Rs = rot_from_ypr(torch.as_tensor(
+                        np.asarray(q["rot0"], np.float32))).numpy()
+                    for idx in range(q["trans0"].shape[0]):
+                        rendered = _result_render(
+                            q["trans0"][idx], Rs[idx], cache["xyz"],
+                            b["rgb_used"], cache["mask"], (H0 // 2, W0 // 2))
+                        artifacts.submit(
+                            save_result_image,
+                            os.path.join(
+                                log_dir, "starting_points", b["video_name"],
+                                f"{b['img_seq'].split('.')[0]}_{idx}.png"),
+                            b["orig"], rendered,
+                        )
+                elapsed = time.time() - start + b["prep_timed"]
+
+                t_err = translation_error(gt_trans, t)
+                r_err = rotation_error_deg(gt_rot, R)
+                if not tracker.update(t_err, r_err):
+                    failed.append(filename)
+                    summaries.add_text("failed rooms", filename)
+
+                print(f"\n{filename}")
+                print(f"route : {q['route']}")
+                print(f"min_index : {q['k']}")
+                print(f"min loss : {q['loss']}")
+                print(f"translation error : {t_err}")
+                print(f"rotation error : {r_err}\n")
+                print(
+                    f"current accuracy : {tracker.accuracy} "
+                    f"({tracker.well_posed}/{tracker.total})\n"
+                )
+                summaries.add("current_accuracy", tracker.accuracy)
+                csv_out.write([
+                    img_name, fmt_array(gt_trans), fmt_array(gt_rot), 0,
+                    fmt_array(t), fmt_array(R), t_err, r_err, elapsed,
+                ])
+                summaries.write(trial)
+            except Exception:
+                if not continue_on_error:
+                    csv_out.close()
+                    raise
+                failed.append(filename)
+                summaries.add_text("errored rooms", filename)
+                continue
+
+    csv_out.close()
+    summaries.write_scalar("final accuracy", tracker.accuracy)
+    print(f"Final Accuracy : {tracker.accuracy}")
+    print(f"failed {len(failed)} rooms\n")
+    print(f"skipped {len(skipped)} rooms")
     return tracker.accuracy

@@ -16,7 +16,9 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..device import as_tensor, resolve_device
@@ -26,11 +28,13 @@ from ..loss import Pose, sampling_loss_packed, transform_cloud
 from ..ops.histogram import bin_ids, block_histograms
 from ..ops.pano import attr_min_decode, attr_min_keys
 from ..ops.sampling import pack_bilinear_blocks
+from .candidates import generate_rot_points, generate_trans_points
 
 __all__ = [
     "SUPPORTED_CRITERIA", "check_criterion", "score_pose_grid",
-    "trim_by_loss", "hist_scores_core", "trim_by_hist", "HistPlan",
-    "build_hist_plan", "hist_plan_bytes", "hist_scores_from_planes",
+    "trim_by_loss", "hist_scores", "hist_scores_core", "trim_by_hist",
+    "make_input", "HistPlan", "build_hist_plan", "hist_plan_bytes",
+    "hist_scores_from_planes",
 ]
 
 _HIST_BINS = (8, 8, 8)  # reference utils.py:531
@@ -47,6 +51,16 @@ def check_criterion(criterion: str) -> None:
             f"criterion={criterion!r} not supported "
             "('loss_histogram' or 'loss')"
         )
+
+
+def _pad_rows(a: torch.Tensor, multiple: int) -> Tuple[torch.Tensor, int]:
+    """``a`` padded with copies of its first row to a multiple of
+    ``multiple`` rows, and its original row count."""
+    n = a.shape[0]
+    pad = (-n) % multiple
+    if pad:
+        a = torch.cat([a, a[:1].expand((pad,) + tuple(a.shape[1:]))])
+    return a, n
 
 
 def _pose_batch(trans: torch.Tensor, ypr: torch.Tensor) -> Pose:
@@ -189,12 +203,27 @@ def hist_scores_core(img, xyz, rgb, trans, ypr, pm, num_split_h: int,
     return _score_from_pbin(pbin, q)
 
 
+def hist_scores(img, xyz, rgb, trans, ypr, point_mask=None, *,
+                num_split_h: int, num_split_w: int, chunk: int = 8,
+                masked: bool = False) -> torch.Tensor:
+    """Blockwise histogram-intersection score per candidate (higher is
+    better); ``point_mask`` applies when ``masked``."""
+    return hist_scores_core(img, xyz, rgb, trans, ypr,
+                            point_mask if masked else None, num_split_h,
+                            num_split_w, chunk)
+
+
 def trim_by_hist(img, xyz, rgb, trans, rot, num_input: int, num_split_h: int,
                  num_split_w: int, point_mask=None):
     """The num_input candidates with the highest histogram score (stable
-    argsort, taken from the top: among ties the higher index first)."""
-    scores = hist_scores_core(img, xyz, rgb, trans, rot, point_mask,
-                              num_split_h, num_split_w, chunk=8)
+    argsort, taken from the top: among ties the higher index first).  The
+    candidates are padded to a multiple of 8 rows, as in the JAX package,
+    so the block-histogram kernel sees the same shapes."""
+    trans_p, n = _pad_rows(trans, 8)
+    rot_p, _ = _pad_rows(rot, 8)
+    scores = hist_scores(img, xyz, rgb, trans_p, rot_p, point_mask,
+                         num_split_h=num_split_h, num_split_w=num_split_w,
+                         masked=point_mask is not None)[:n]
     k = min(num_input, scores.shape[0])
     idx = torch.sort(scores, stable=True).indices[-k:].flip(0)
     return trans[idx], rot[idx]
@@ -249,3 +278,61 @@ def hist_scores_from_planes(img, planes_sel: torch.Tensor, num_split_h: int,
     (the selected candidates' rows of a HistPlan)."""
     q = _query_side(img, num_split_h, num_split_w)
     return _score_from_pbin(planes_sel.to(torch.int32), q)
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else (
+        np.asarray(x))
+
+
+def make_input(img, xyz, rgb, num_input: int, init_dict: Dict,
+               criterion: str = "loss_histogram",
+               num_intermediate: Optional[int] = None, point_mask=None,
+               seed: int = 2, wrap: bool = False,
+               device="cuda") -> Tuple[np.ndarray, np.ndarray]:
+    """The staged init: candidate grids, the loss trim, then the histogram
+    trim; returns numpy (num_input, 3) starting translations and
+    rotations.
+
+    The grids come from the valid points only.  ``sample_rate_for_init``
+    in ``init_dict`` keeps each valid point with probability 1/rate (one
+    numpy draw from ``default_rng(seed)`` over the valid points, scattered
+    back to the padded layout) by narrowing the mask.  ``criterion="loss"``
+    keeps the top ``num_input`` pairs by loss and skips the histogram
+    trim."""
+    check_criterion(criterion)
+    dev = resolve_device(device)
+    xyz_np_full = _host(xyz)
+    mask_np = None if point_mask is None else _host(point_mask).astype(bool)
+    xyz_np = xyz_np_full if mask_np is None else xyz_np_full[mask_np]
+    f32 = torch.float32
+    rot = torch.as_tensor(np.asarray(generate_rot_points(init_dict), np.float32),
+                          device=dev)
+    trans = torch.as_tensor(
+        np.asarray(generate_trans_points(xyz_np, init_dict), np.float32),
+        device=dev)
+    img = as_tensor(img, dev, f32)
+    xyz = as_tensor(xyz, dev, f32)
+    rgb = as_tensor(rgb, dev, f32)
+    mask = None if mask_np is None else torch.as_tensor(mask_np, device=dev)
+    rate = init_dict.get("sample_rate_for_init")
+    if rate is not None:
+        draw = np.random.default_rng(seed).random(xyz_np.shape[0]) < 1.0 / rate
+        if mask_np is None:
+            keep = draw
+        else:
+            keep = np.zeros(xyz_np_full.shape[0], bool)
+            keep[mask_np] = draw
+        keep = torch.as_tensor(keep, device=dev)
+        mask = keep if mask is None else mask & keep
+
+    if criterion == "loss":
+        t2, r2 = trim_by_loss(img, xyz, rgb, trans, rot, num_input, mask,
+                              wrap=wrap)
+    else:
+        t1, r1 = trim_by_loss(img, xyz, rgb, trans, rot, num_intermediate,
+                              mask, wrap=wrap)
+        t2, r2 = trim_by_hist(img, xyz, rgb, t1, r1, num_input,
+                              init_dict["num_split_h"],
+                              init_dict["num_split_w"], mask)
+    return t2.cpu().numpy(), r2.cpu().numpy()

@@ -44,19 +44,15 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> float:
     from .config import apply_overrides, parse_ini, save_config
     from .device import resolve_device
-    from .harness.localize import localize_stanford
+    from .harness.localize import localize_omniscenes, localize_stanford
 
     args = build_parser().parse_args(argv)
     resolve_device(args.device)  # raises without a card unless --device cpu
     cfg = parse_ini(args.config)
     cfg = apply_overrides(cfg, args.override)
-    if cfg.dataset == "OmniScenes":
-        raise NotImplementedError(
-            "the OmniScenes harness is not ported to piccolo_tpu_torch yet: "
-            "its panoramas are JPEG, and the port has no JPEG decoder that "
-            "runs without cv2 and PIL"
-        )
-    if cfg.dataset != "Stanford2D-3D-S":
+    harness = {"Stanford2D-3D-S": localize_stanford,
+               "OmniScenes": localize_omniscenes}.get(cfg.dataset)
+    if harness is None:
         raise ValueError(f"unknown dataset: {cfg.dataset!r}")
 
     os.makedirs(args.log, exist_ok=True)
@@ -71,7 +67,7 @@ def main(argv=None) -> float:
         except Exception:
             writer = None
 
-    return localize_stanford(cfg, writer, args.log, device=args.device)
+    return harness(cfg, writer, args.log, device=args.device)
 
 
 if __name__ == "__main__":

@@ -9,8 +9,7 @@
 
 Selections use ``torch.sort(stable=True)``: ``lax.top_k`` keeps the lower
 index first among ties, ``torch.topk`` promises no order, and ties are
-common here (every padding pair scores +inf).  The prune and
-multi-resolution descent modes, and the batched query, are not ported yet.
+common here (every padding pair scores +inf).
 
 Each stage runs inside a ``torch.profiler`` span (``localize.stage1_*``,
 ``localize.stage2_*``, ``localize.stage3_*``) so a profile of a query
@@ -21,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -39,7 +38,7 @@ from .ops.rotation import rot_from_ypr
 from .ops.sampling import resolve_descent_table
 from .solver import descend_starts
 
-__all__ = ["LocalizeResult", "localize_query"]
+__all__ = ["LocalizeResult", "localize_query", "localize_query_batch"]
 
 
 @dataclasses.dataclass
@@ -127,7 +126,9 @@ def localize_query(
     seam_wrap: bool = False,
     trajectory: bool = False,
     criterion: str = "loss_histogram",
+    descent_prune: Optional[Tuple[int, int]] = None,
     plan_tail: str = "pad",
+    descent_multires: Optional[Tuple[int, int]] = None,
     device="cuda",
 ):
     """Localize one panorama; returns a :class:`LocalizeResult`, or
@@ -146,6 +147,12 @@ def localize_query(
     ``float32``, ``bfloat16``, ``uint8``); ``seam_wrap`` samples across the
     equirect seam; ``grid_chunk``/``hist_chunk`` bound how many poses the
     gather engine and the live splat process at once.
+
+    ``descent_prune=(prune_iter, prune_keep)`` and
+    ``descent_multires=(low_iters, stride)`` are the descent's speed modes
+    (``solver.descend``); both are off by default, and neither combines
+    with the other or with ``trajectory``.  Clone rows of the scarce-pair
+    fallback never take a prune survivor slot.
     """
     check_criterion(criterion)
     if plan_tail not in ("pad", "xla"):
@@ -219,12 +226,13 @@ def localize_query(
     t2 = torch.where(final_valid[:, None], t2, t2[0])
     r2 = torch.where(final_valid[:, None], r2, r2[0])
 
-    # ---- stage 3: multi-start descent (the default branch: every start
-    # for the full budget)
+    # ---- stage 3: multi-start descent
     with record_function("localize.stage3_descent"):
         params, losses, _, traj = descend_starts(
             img_main, xyz, rgb, t2, r2, lo, hi, pm, num_iter, lr, patience,
-            factor, table_dtype, seam_wrap, trajectory,
+            factor, table_dtype, seam_wrap, trajectory, prune=descent_prune,
+            multires=descent_multires, table_arg=descent_table,
+            start_valid=final_valid,
         )
     ypr = params.ypr()
     w = torch.argmin(losses)
@@ -236,3 +244,24 @@ def localize_query(
     if trajectory:
         return result, traj
     return result
+
+
+def localize_query_batch(img_init_batch, img_main_batch, xyz, rgb, trans_grid,
+                         rot_grid, trans_valid, lo, hi, point_mask=None,
+                         **kw) -> LocalizeResult:
+    """Localize (Q, ...) panoramas of one room: :func:`localize_query` per
+    query, results stacked with a leading Q axis.  A convenience API with
+    no reference counterpart; the JAX package measured its one-program
+    batch slower than single queries, so the port loops.  ``trajectory`` is
+    not supported here."""
+    if kw.get("trajectory"):
+        raise ValueError("localize_query_batch returns no trajectories")
+    results = [
+        localize_query(ii, im, xyz, rgb, trans_grid, rot_grid, trans_valid,
+                       lo, hi, point_mask, **kw)
+        for ii, im in zip(img_init_batch, img_main_batch)
+    ]
+    return LocalizeResult(*[
+        torch.stack([getattr(r, f.name) for r in results])
+        for f in dataclasses.fields(LocalizeResult)
+    ])

@@ -1,5 +1,6 @@
 """Synthetic scenes (port of piccolo_tpu.testing's room factory and its
-ray-cast oracle) and a writer of synthetic Stanford2D-3D-S trees.
+ray-cast oracle) and writers of synthetic Stanford2D-3D-S and OmniScenes
+trees.
 
 Render a panorama from a synthetic coloured cloud at a known pose, then
 require the pipeline to recover that pose.  The scene factories are numpy
@@ -26,7 +27,8 @@ from .ops.rotation import rot_from_ypr
 
 __all__ = ["make_room", "random_pose_inside", "render_at", "RoomScene",
            "make_scene", "scene_pose", "scene_cloud", "raycast_pano",
-           "write_synth_stanford", "edge_plan_group"]
+           "write_synth_stanford", "write_synth_omniscenes",
+           "edge_plan_group"]
 
 _WALL_FACES = ((0, 1), (0, -1), (1, 1), (1, -1), (2, 1), (2, -1))
 
@@ -393,31 +395,12 @@ def write_synth_stanford(root: str, rooms: int = 1, queries: int = 3,
     """
     from .harness.imaging import imwrite_rgb
 
-    if oracle not in ("raycast", "splat"):
-        raise ValueError(f"oracle must be 'raycast' or 'splat', got {oracle!r}")
     rng = np.random.default_rng(seed)
     area = 1
     for ri in range(rooms):
         size = _ROOM_SIZES[ri % len(_ROOM_SIZES)]
-        if oracle == "raycast":
-            scene = make_scene(rng, size=size, n_occluders=2, texture="checker")
-            xyz, rgb = scene_cloud(scene, rng, points)
-
-            def render(t, ypr, resolution, scene=scene):
-                return raycast_pano(scene, t, ypr, resolution)
-
-            def sample_pose(scene=scene):
-                return scene_pose(scene, rng)
-        else:
-            xyz, rgb = make_room(rng, n_per_wall=points // 6, size=size,
-                                 texture="checker")
-
-            def render(t, ypr, resolution, xyz=xyz, rgb=rgb):
-                return render_at(xyz, rgb, t, ypr, resolution,
-                                 device="cpu").numpy()
-
-            def sample_pose(size=size):
-                return random_pose_inside(rng, size)
+        xyz, rgb, render, sample_pose, _ = _room_oracle(rng, size, points,
+                                                        oracle)
         room_type, room_no = "office", str(ri + 1)
         _write_cloud(
             os.path.join(root, "stanford", "pcd_not_aligned", f"area_{area}",
@@ -444,6 +427,95 @@ def write_synth_stanford(root: str, rooms: int = 1, queries: int = 3,
             os.makedirs(os.path.dirname(pose_path), exist_ok=True)
             with open(pose_path, "w") as f:
                 json.dump(pose, f)
+
+
+def _room_oracle(rng, size, points, oracle, floor_at_zero=False):
+    """A room's cloud, a renderer ``render(t, ypr, resolution)`` and a pose
+    sampler ``pose(z_range=None)``, drawing from ``rng`` as
+    ``scripts/make_synth_dataset.py`` does; also the occluder boxes."""
+    if oracle not in ("raycast", "splat"):
+        raise ValueError(f"oracle must be 'raycast' or 'splat', got {oracle!r}")
+    if oracle == "raycast":
+        scene = make_scene(rng, size=size, n_occluders=2, texture="checker",
+                           floor_at_zero=floor_at_zero)
+        xyz, rgb = scene_cloud(scene, rng, points)
+
+        def render(t, ypr, resolution):
+            return raycast_pano(scene, t, ypr, resolution)
+
+        def pose(z_range=None):
+            return scene_pose(scene, rng, z_range=z_range)
+
+        return xyz, rgb, render, pose, scene.occluders
+    xyz, rgb = make_room(rng, n_per_wall=points // 6, size=size,
+                         texture="checker")
+
+    def render(t, ypr, resolution):
+        return render_at(xyz, rgb, t, ypr, resolution, device="cpu").numpy()
+
+    def pose(z_range=None):
+        return random_pose_inside(rng, size)
+
+    return xyz, rgb, render, pose, np.zeros((0, 2, 3), np.float32)
+
+
+def _inside_any(t, occluders, clearance=0.15) -> bool:
+    if not occluders.size:
+        return False
+    return bool(np.any(np.all(
+        (t >= occluders[:, 0] - clearance) & (t <= occluders[:, 1] + clearance),
+        axis=1)))
+
+
+def write_synth_omniscenes(root: str, rooms: int = 1, queries: int = 3,
+                           points: int = 30000, height: int = 512,
+                           seed: int = 7, oracle: str = "raycast") -> None:
+    """Write a synthetic OmniScenes tree under ``root`` (split "extreme"):
+    clouds, panoramas (JPEG q95, by the port's own encoder) and ``[R|t]``
+    pose files in the dataset's layout.  Same file names, clouds, poses and
+    random stream as ``scripts/make_synth_dataset.py --datasets
+    omniscenes``.
+
+    Ray-cast rooms are floor-referenced (floor at z = 0), so the shipped
+    ``z_prior = 1.5`` applies, and a video is a handheld walk: after a
+    first pose at 1.3-1.7 m, each frame moves ~2 cm and turns ~0.9 deg,
+    keeps its height band and never steps into an occluder."""
+    from .harness.imaging import imwrite_rgb
+
+    rng = np.random.default_rng(seed)
+    for ri in range(rooms):
+        size = _ROOM_SIZES[ri % len(_ROOM_SIZES)]
+        xyz, rgb, render, sample_pose, occluders = _room_oracle(
+            rng, size, points, oracle, floor_at_zero=True)
+        room_type, room_no = "pyebang", str(ri + 1)
+        _write_cloud(os.path.join(root, "omniscenes", "pcd",
+                                  f"{room_type}_{room_no}.txt"), xyz, rgb)
+        video = f"handheld_{room_type}_{room_no}_scene_1"
+        t = ypr = None
+        for qi in range(queries):
+            if oracle == "raycast" and t is not None:
+                half_xy = np.array(size[:2], np.float32) / 2 - 0.4
+                for _ in range(50):
+                    cand = t + rng.normal(0, 0.02, 3).astype(np.float32)
+                    cand[2] = np.clip(cand[2], 1.3, 1.7)
+                    cand[:2] = np.clip(cand[:2], -half_xy, half_xy)
+                    if not _inside_any(cand, occluders):
+                        t = cand
+                        break
+                ypr = ypr + np.float32([rng.normal(0.015, 0.01), 0, 0])
+            else:
+                t, ypr = sample_pose(
+                    z_range=(1.3, 1.7) if oracle == "raycast" else None)
+            img = render(t, ypr, (height, 2 * height))
+            pano = os.path.join(root, "omniscenes", "extreme_pano", video,
+                                f"{qi:06d}.jpg")
+            os.makedirs(os.path.dirname(pano), exist_ok=True)
+            imwrite_rgb(pano, (img * 255).astype(np.uint8))
+            R = rot_from_ypr(torch.as_tensor(ypr, dtype=torch.float32)).numpy()
+            pose_path = os.path.join(root, "omniscenes", "extreme_pose",
+                                     video, f"{qi:06d}.txt")
+            os.makedirs(os.path.dirname(pose_path), exist_ok=True)
+            np.savetxt(pose_path, np.hstack([R, t.reshape(3, 1)]))
 
 
 def edge_plan_group(rng: np.random.Generator, specs, block: int, window: int,

@@ -12,7 +12,9 @@ the JAX package's on a synthetic Stanford tree from
     gather engine on the CPU) within 1e-3 m.
   * ``write_synth_stanford`` writes the script's tree.
   * Without a card the CLI raises unless asked for the CPU, and the keys
-    of later slices raise NotImplementedError.
+    of later slices raise NotImplementedError (the staged path, descent
+    prune and multires and OmniScenes run: test_torch_staged.py and
+    test_torch_omniscenes.py).
 """
 
 import csv
@@ -113,6 +115,31 @@ def test_port_cli_matches_jax_cli(synth_root, tmp_path):
         assert np.abs(_winner(tr) - _winner(jr)).max() < 1e-3, (tr, jr)
 
 
+@pytest.mark.parametrize("mode", [
+    "fused=False", "sample_rate_for_init=2",
+    "descent_prune_iter=8,descent_prune_keep=2",
+    "descent_multires_iter=8,descent_multires_stride=2",
+])
+def test_port_cli_modes_match_jax_cli(synth_root, mode, tmp_path):
+    """The staged path (fused = False, sample_rate_for_init) and the
+    descent speed modes through both CLIs: the same rows, and the winners
+    within 1e-3 m at lr 0.01 and 20 iterations."""
+    from piccolo_tpu.main import main as jmain
+
+    cfg = _write_cfg(str(tmp_path / "cfg.ini"), synth_root)
+    jlog, tlog = str(tmp_path / "jax"), str(tmp_path / "port")
+    ov = f"lr=0.01,num_iter=20,{mode}"
+    jmain(["--config", cfg, "--log", jlog, "--no-tensorboard",
+           "--override", ov])
+    _port(cfg, tlog, ov)
+    jh, jrows = _rows(jlog)
+    th, trows = _rows(tlog)
+    assert th == jh
+    assert [r[:5] for r in trows] == [r[:5] for r in jrows]
+    for tr, jr in zip(trows, jrows):
+        assert np.abs(_winner(tr) - _winner(jr)).max() < 1e-3, (tr, jr)
+
+
 def test_port_cli_artifacts_and_accuracy(auto_run):
     cfg, log, acc = auto_run
     assert acc == 1.0
@@ -173,13 +200,9 @@ def test_cli_without_a_card_raises(auto_run, monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("override,match", [
     ("n_devices=2", "multi-device"),
-    ("fused=False", "staged-path"),
-    ("sample_rate_for_init=2", "staged-path"),
-    ("descent_prune_iter=10", "prune and multires"),
-    ("descent_multires_iter=10", "prune and multires"),
     ("profile_dir=/nonexistent", "profiling"),
     ("exec_cache_dir=/nonexistent", "serving"),
-    ("dataset=OmniScenes", "JPEG"),
+    ("dataset=OmniScenes,tracking=True", "tracking"),
 ])
 def test_unported_keys_raise(auto_run, override, match, tmp_path):
     cfg, _, _ = auto_run

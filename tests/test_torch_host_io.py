@@ -150,12 +150,13 @@ def test_png_decode_refuses_what_it_cannot_read(tmp_path):
     cv2.imwrite(p16, img.astype(np.uint16) * 257)
     with pytest.raises(ValueError, match="bit depth 16"):
         imaging.imread_rgb(p16)
-    pj = str(tmp_path / "a.jpg")
-    cv2.imwrite(pj, img)
-    with pytest.raises(ValueError, match="JPEG"):
-        imaging.imread_rgb(pj)
-    with pytest.raises(ValueError, match="only PNG"):
-        imaging.imwrite_rgb(str(tmp_path / "x.jpg"), img)
+    # JPEG has its own decoder now (test_torch_jpeg.py); other formats raise
+    pb = str(tmp_path / "a.bmp")
+    cv2.imwrite(pb, img)
+    with pytest.raises(ValueError, match="not a PNG or JPEG"):
+        imaging.imread_rgb(pb)
+    with pytest.raises(ValueError, match="only PNG and JPEG"):
+        imaging.imwrite_rgb(str(tmp_path / "x.bmp"), img)
 
 
 @pytest.mark.parametrize("factor", [1, 2, 3, 4, 1.5])

@@ -1,5 +1,6 @@
-"""piccolo_tpu_torch stands alone: it imports no JAX and nothing of
-piccolo_tpu, and its entry points refuse to run on the CPU unless asked."""
+"""piccolo_tpu_torch stands alone: it imports no JAX, nothing of
+piccolo_tpu and neither cv2 nor PIL (the card machine has none of them),
+and its entry points refuse to run on the CPU unless asked."""
 
 import pathlib
 import re
@@ -21,7 +22,8 @@ import piccolo_tpu_torch
 for m in pkgutil.walk_packages(piccolo_tpu_torch.__path__, "piccolo_tpu_torch."):
     importlib.import_module(m.name)
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "jaxlib", "piccolo_tpu"))
+             if k.split(".")[0] in ("jax", "jaxlib", "piccolo_tpu", "cv2",
+                                    "PIL"))
 print(len([k for k in sys.modules if k.startswith("piccolo_tpu_torch.")]))
 print(bad)
 """
@@ -40,6 +42,18 @@ def test_sources_never_import_jax_or_the_reference_package():
                      r"|from\s+piccolo_tpu\b(?!_torch))", re.M)
     hits = [str(p) for p in PKG.rglob("*.py") if pat.search(p.read_text())]
     assert hits == []
+
+
+# the one exception: outputs.save_gif imports PIL inside the function and
+# raises a clear error without it (visualize = True GIFs)
+_PIL_EXCEPTION = ("harness/outputs.py", "        from PIL import Image")
+
+
+def test_sources_never_import_cv2_or_pil():
+    pat = re.compile(r"^\s*(import\s+(cv2|PIL)\b|from\s+(cv2|PIL)\b).*$", re.M)
+    hits = [(str(p.relative_to(PKG)), m.group(0))
+            for p in PKG.rglob("*.py") for m in pat.finditer(p.read_text())]
+    assert hits == [_PIL_EXCEPTION]
 
 
 @pytest.mark.parametrize("entry", ["localize_query", "build_grid_plan",
