@@ -74,7 +74,31 @@ Phases (any failure exits non-zero; each prints its seconds):
      ladder) and fused = False; accuracy >= 0.75 under 0.1 m / 5 deg each,
      the same winners within 1e-3 m; launches counted over the fused run;
  16. one OmniScenes query under torch.profiler;
-then one JSON line of kernel measurements (launches from the CLI run that
+ 17. serving (between phases 10 and 12): configs/stanford.ini in
+     LocalizeService on the CLI's room, warmed at load, behind serve_forever
+     on loopback; /healthz, 10 /localize requests by image_path and 1 by
+     image_b64, each bit-equal to the harness's _run_fused (p50 and p90 of
+     total_s); two tracked requests chained through prev_pose, one
+     recover_above request that recovers; one served request under
+     torch.profiler; then room = "auto" under the shipped config over the
+     CLI room and a second ray-cast office loaded through /room, by a full
+     query per room and with room_auto_probe = "batched" (the per-room
+     probe): each query's room scores rank the rooms as ROOM_AUTO_RECORD,
+     taken from both packages on the CPU, says; and the CLI room repainted
+     (colours inverted), which its repainted query must pick;
+ 18. the device colour prep of a tracked frame at 2048x1024 on the first
+     OmniScenes frame: the block histogram at (3 x 1024, 2048) and the
+     masked histogram at N = 2,097,152 bit-exact against their plain
+     versions and timed; color_match_device and color_mod_device through
+     the kernels equal to the same on the plain versions, and within the
+     JAX package's tolerances of the host color_match / color_mod;
+ 19. configs/omniscenes.ini with tracking = True through the CLI, and again
+     with sharpen_color = True: frame 0 seed, frames 1-3 tracked with the
+     device colour prep, 4/4; without sharpen_color, poses within 1e-2 m
+     of phase 15's fused run;
+     median time (s) of the tracked frames beside the fused median; then
+     one tracked frame under torch.profiler;
+then one JSON line of kernel measurements (launches from the run that
 drives each kernel) and, last, the device line.
 """
 
@@ -105,6 +129,21 @@ OMNI_QUERIES = 4
 CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
                       "stanford.ini")
 OMNI_CONFIG = os.path.join(os.path.dirname(CONFIG), "omniscenes.ini")
+SERVED_REQUESTS = 10
+# room = "auto" (phase 17): a two-room ray-cast Stanford tree whose office_1
+# and first panorama are the CLI tree's, and, per room_auto_probe mode and
+# query, the room picked and the order of the room scores (a full query's
+# loss, or the probe's for a room the probe ruled out) under
+# configs/stanford.ini: the same in the JAX package and the port on the CPU
+# (scripts/room_auto_record.py)
+ROOM_AUTO_TREE = dict(rooms=2, queries=1, points=60000, height=512, seed=7,
+                      oracle="raycast")
+ROOM_AUTO_RECORD = {
+    "False": {"0000synth": ("office_1.txt", ["office_1.txt", "office_2.txt"]),
+              "0100synth": ("office_2.txt", ["office_2.txt", "office_1.txt"])},
+    "True": {"0000synth": ("office_1.txt", ["office_1.txt", "office_2.txt"]),
+             "0100synth": ("office_2.txt", ["office_1.txt", "office_2.txt"])},
+}
 
 
 def log(*a):
@@ -765,6 +804,45 @@ def phase_main_path(room, dev):
     return launches, med_s
 
 
+BACKWARD = "autograd backward (the descent's gradient)"
+
+
+def cpu_op_stages(raw):
+    """The stage of each torch op in ``raw`` (torch.profiler's raw kineto
+    events), by its correlation id: the innermost ``localize.*`` span that
+    encloses it on its thread, else the backward when an ``autograd::engine``
+    frame encloses it, else None.  This is the walk up ``cpu_parent`` that
+    torch.profiler's event tree allows, from one sorted pass a thread: that
+    tree takes tens of seconds to build for a query's ~60k device ops."""
+    from torch.autograd import DeviceType
+
+    threads = {}
+    for e in raw:
+        # torch ops; runtime calls carry the id of the op that made them
+        if e.device_type() == DeviceType.CPU and e.linked_correlation_id() == 0:
+            threads.setdefault(e.start_thread_id(), []).append(e)
+    stage_of = {}
+    for evs in threads.values():
+        evs.sort(key=lambda e: (e.start_ns(), -e.end_ns()))
+        stack = []  # (end_ns, stage) of the ops that enclose the next one
+        for e in evs:
+            while stack and stack[-1][0] <= e.start_ns():
+                stack.pop()
+            up = stack[-1][1] if stack else None
+            name = e.name()
+            if name.startswith("localize."):
+                stage = name
+            elif up is not None and up.startswith("localize."):
+                stage = up
+            elif name.startswith("autograd::engine"):
+                stage = BACKWARD
+            else:
+                stage = up
+            stage_of[e.correlation_id()] = stage
+            stack.append((e.end_ns(), stage))
+    return stage_of
+
+
 def profile_query(label, run, median_s):
     """One call of ``run`` (a query) under torch.profiler: device busy time
     per stage span (localize.*) and for the whole query, the idle share of
@@ -772,9 +850,10 @@ def profile_query(label, run, median_s):
     ``median_s``), and the kernels that take the most device time.  A torch
     op's kernels are charged to the span around the op; autograd runs the
     backward on its own thread, outside every span, so ops under an
-    ``autograd::engine`` frame are counted as the backward.  The port's own
-    kernels are launched through ctypes, under no torch op, so they are
-    charged to their stage by name.  Returns the stages' device ms."""
+    ``autograd::engine`` frame are counted as the backward
+    (``cpu_op_stages``).  The port's own kernels are launched through
+    ctypes, under no torch op, so they are charged to their stage by name.
+    Returns the stages' device ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -790,31 +869,23 @@ def profile_query(label, run, median_s):
     def add(d, key, us):
         d[key] = d.get(key, 0.0) + us
 
+    raw = prof.profiler.kineto_results.events()
+    stage_of = cpu_op_stages(raw)
     stages, by_kernel, busy_us, n_ops = {}, {}, 0.0, 0
-    for e in prof.events():
+    for e in raw:
+        name = e.name()
         # the spans' own device-side ranges are not device work
-        if e.device_type == DeviceType.CUDA and not e.name.startswith("localize."):
-            us = e.time_range.elapsed_us()
-            busy_us += us
-            n_ops += 1
-            add(by_kernel, e.name, us)
-            for key, stage in own.items():
-                if key in e.name:
-                    add(stages, stage, us)
-        if e.device_type != DeviceType.CPU or not getattr(e, "kernels", None):
+        if e.device_type() != DeviceType.CUDA or name.startswith("localize."):
             continue
-        stage, p = None, e
-        while p is not None:
-            if p.name.startswith("localize."):
-                stage = p.name
-                break
-            if p.name.startswith("autograd::engine"):
-                stage = "autograd backward (the descent's gradient)"
-            p = p.cpu_parent
-        for k in e.kernels:
-            if stage and not k.name.startswith("localize.") and not any(
-                    key in k.name for key in own):
-                add(stages, stage, k.duration)
+        us = e.duration_ns() / 1e3
+        busy_us += us
+        n_ops += 1
+        add(by_kernel, name, us)
+        stage = next((s_ for key, s_ in own.items() if key in name), None)
+        if stage is None:
+            stage = stage_of.get(e.linked_correlation_id())
+        if stage:
+            add(stages, stage, us)
     if busy_us > sum(stages.values()):
         stages["outside the stage spans"] = busy_us - sum(stages.values())
     log(f"{label} profiled query: wall {wall_us / 1e3:.1f} ms under the "
@@ -1035,7 +1106,7 @@ def phase_speed_modes(room, dev):
                 lambda: _query(room, img_init, img_main, dev, **kw), med_s)
             fwd = stages.get("localize.stage3_descent", 0.0)
             descent = fwd + stages.get(
-                "autograd backward (the descent's gradient)", 0.0)
+                BACKWARD, 0.0)
         log(f"library {name}: median {med_s:.4f} s/query, median t_err "
             f"{med_t:.4f} m; per query s "
             f"{[round(r_[0], 4) for r_ in rows[name]]}, t_err (m) "
@@ -1385,7 +1456,8 @@ def phase_omni_cli(omni, dev):
             raise AssertionError(f"omniscenes {run}: block_histogram launched "
                                  f"{launches['block_histogram']} times for "
                                  f"{n_q} queries")
-        out[run] = dict(launches=launches, routes=routes, s=q_s, acc=acc)
+        out[run] = dict(launches=launches, routes=routes, s=q_s, acc=acc,
+                        winners=winners[run])
     dt = float(np.abs(winners["fused"] - winners["staged"]).max())
     log(f"omniscenes cli fused vs staged: winners within {dt:.3g} m")
     if not dt < 1e-3:
@@ -1419,6 +1491,463 @@ def phase_omni_profile(o, dev, median_s):
     profile_query("omniscenes", run, median_s)
 
 
+def phase_omni_colour(o, dev):
+    """The device colour prep of a tracked frame at 2048x1024, on the
+    OmniScenes frame already loaded: the block histogram at the rows
+    color_match_device gives it ((3 x 1024, 2048) ids, 256 bins) and the
+    masked histogram at the Y ids color_mod_device gives it (N = 2,097,152,
+    256 bins), each bit-exact against its plain version, timed against its
+    bound and torch.bincount; both functions through the kernels against
+    the same functions on the plain versions (equal images) and against the
+    host color_match / color_mod (the JAX package's test tolerances, 1e-5
+    and 1.001/255); both functions' device ms."""
+    from piccolo_tpu_torch import color
+    from piccolo_tpu_torch.color import _rgb2ycrcb_i32
+    from piccolo_tpu_torch.convert import cdf_from_numpy, sharpen_state_from_numpy
+    from piccolo_tpu_torch.harness.imaging import imread_rgb
+    from piccolo_tpu_torch.harness.localize import resize_ablate_omniscenes
+    from piccolo_tpu_torch.kernels import block_histogram as bh
+    from piccolo_tpu_torch.kernels import histogram as mh
+
+    room = o["room"]
+    orig = resize_ablate_omniscenes(o["cfg"], imread_rgb(o["gt"]))
+    img_np = orig.astype(np.float32) / 255.0
+    img = torch.as_tensor(img_np, device=dev)
+    H, W, _ = img.shape
+    rgb_np = room["rgb_np"]
+    cdf = cdf_from_numpy(color.cloud_color_cdf(rgb_np), dev)
+    st = sharpen_state_from_numpy(color.cloud_sharpen_state(
+        rgb_np, pad_to=int(room["mask"].shape[0])), dev)
+
+    # the kernels' inputs, as the two functions build them
+    img_i = (img * 255).to(torch.int32)
+    nonblack = img_i.sum(-1) > 0
+    ids = img_i.permute(2, 0, 1).reshape(3 * H, W).contiguous()
+    msk = nonblack.to(torch.float32).repeat(3, 1).contiguous()
+    y = _rgb2ycrcb_i32(img_i, xp=torch).to(torch.int32)[..., 0]
+    y = y.reshape(-1).contiguous()
+    w = nonblack.reshape(-1).to(torch.float32).contiguous()
+    got_b, want_b = bh.block_histogram(ids, msk, 256), bh.block_histogram_plain(ids, msk, 256)
+    got_m = mh.masked_histogram_counts(y, w, 256)
+    want_m = mh.masked_histogram_counts_plain(y, w, 256)
+    torch.cuda.synchronize()
+    if not (torch.equal(got_b, want_b) and torch.equal(got_m, want_m)):
+        raise AssertionError("a histogram kernel differs from its plain "
+                             "version on the tracked frame")
+    B, N = ids.shape
+    flat = (torch.arange(B, device=dev)[:, None] * 256 + ids).reshape(-1)
+    y64 = y.to(torch.int64)
+    rows = []
+    for name, fn, plain, nbytes, n_in, lib, line, src in (
+            ("block_histogram", lambda: bh.block_histogram(ids, msk, 256),
+             lambda: bh.block_histogram_plain(ids, msk, 256),
+             ids.numel() * 8 + B * 256 * 4, ids.numel(),
+             lambda: torch.bincount(flat, weights=msk.reshape(-1),
+                                    minlength=B * 256), 90,
+             "block_histogram.cu"),
+            ("masked_histogram_counts",
+             lambda: mh.masked_histogram_counts(y, w, 256),
+             lambda: mh.masked_histogram_counts_plain(y, w, 256),
+             y.numel() * 8 + 256 * 4, y.numel(),
+             lambda: torch.bincount(y64, weights=w, minlength=256), 39,
+             "masked_histogram.cu")):
+        bound_ms, bound_by = _bound(nbytes, n_in * 2)
+        rows.append(dict(
+            name=f"{name}.tracked", route="cuda",
+            source=f"piccolo_tpu_torch/kernels/csrc/{src}",
+            replaces=f"piccolo_tpu/kernels/histogram_mxu.py:{line}",
+            max_abs_err=0.0, ms=cuda_ms(fn), plain_ms=cuda_ms(plain),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=cuda_ms(lib)))
+    for r in rows:
+        log(f"tracked-frame {r['name']}: bit-exact; {r['ms']:.4f} ms (plain "
+            f"{r['plain_ms']:.4f}, bincount {r['library_ms']:.4f}, bound "
+            f"{r['bound_ms']:.4f} by {r['bound_by']})")
+    del flat, y64
+
+    matched = color.color_match_device(img, *cdf)
+    sharp, cloud = color.color_mod_device(img, st)
+    real_b, real_m = bh.block_histogram, mh.masked_histogram_counts
+    bh.block_histogram = bh.block_histogram_plain
+    mh.masked_histogram_counts = mh.masked_histogram_counts_plain
+    try:
+        matched_p = color.color_match_device(img, *cdf)
+        sharp_p, cloud_p = color.color_mod_device(img, st)
+    finally:
+        bh.block_histogram, mh.masked_histogram_counts = real_b, real_m
+    if not (torch.equal(matched, matched_p) and torch.equal(sharp, sharp_p)
+            and torch.equal(cloud, cloud_p)):
+        raise AssertionError("the device colour functions differ between "
+                             "the kernels and their plain versions")
+    n = rgb_np.shape[0]
+    d_match = float(np.abs(matched.cpu().numpy()
+                           - color.color_match(img_np.copy(), rgb_np)).max())
+    h_img, h_rgb = color.color_mod(img_np.copy(), rgb_np, 256)
+    d_img = float(np.abs(sharp.cpu().numpy() - h_img).max())
+    d_rgb = float(np.abs(cloud[:n].cpu().numpy() - h_rgb).max())
+    if not (d_match < 1e-5 and d_img <= 1.001 / 255 and d_rgb <= 1.001 / 255
+            and bool(torch.all(cloud[n:] == 0))):
+        raise AssertionError(f"device colour against the host: match "
+                             f"{d_match}, sharpen image {d_img}, cloud {d_rgb}")
+    ms_match = cuda_ms(lambda: color.color_match_device(img, *cdf))
+    ms_mod = cuda_ms(lambda: color.color_mod_device(img, st))
+    log(f"device colour at {W}x{H}: kernels and plain versions give equal "
+        f"images; against the host |match| {d_match:.3g}, |sharpen| image "
+        f"{d_img:.3g} cloud {d_rgb:.3g}; color_match_device {ms_match:.4f} "
+        f"ms, color_mod_device {ms_mod:.4f} ms (device, per frame)")
+    return rows
+
+
+def phase_omni_tracking(omni, dev, fused):
+    """configs/omniscenes.ini with tracking = True through the CLI on the
+    OmniScenes video, then again with sharpen_color = True (the masked
+    histogram's query path): frame 0 seed, frames 1-3 tracked with the
+    device colour prep, 4/4 localized; without sharpen_color every pose
+    within 1e-2 m of the fused run's (phase 15).  Returns each run's
+    launches, those made in the tracked frames' colour prep, and the median
+    s of its tracked frames."""
+    from piccolo_tpu_torch import tracking as T
+    from piccolo_tpu_torch.kernels import slab_sampling as slab
+    from piccolo_tpu_torch.kernels.block_histogram import block_histogram
+    from piccolo_tpu_torch.kernels.histogram import masked_histogram_counts
+    from piccolo_tpu_torch.main import main as cli_main
+
+    kernels = {fn.__name__: fn for fn in (
+        slab.slab_group_sums_f32, slab.slab_group_sums_compact,
+        slab.slab_group_sums_q8, block_histogram, masked_histogram_counts)}
+    # the launches made inside the tracked frames' colour prep, apart from
+    # the seed frame's stage 2: each kernel's own count, read around the
+    # two colour functions
+    colour = {"block_histogram": 0, "masked_histogram_counts": 0}
+
+    def counted(fn, kernel):
+        def wrapped(*a, **kw):
+            n = kernels[kernel].launches
+            try:
+                return fn(*a, **kw)
+            finally:
+                colour[kernel] += kernels[kernel].launches - n
+        return wrapped
+
+    real = T.color_match_device, T.color_mod_device
+    T.color_match_device = counted(real[0], "block_histogram")
+    T.color_mod_device = counted(real[1], "masked_histogram_counts")
+    out = {}
+    try:
+        for run, extra in (("tracking", ""), ("tracking, sharpen_color",
+                                              ",sharpen_color=True")):
+            out[run] = _omni_tracking_run(omni, dev, fused, cli_main,
+                                          kernels, colour, run, extra)
+    finally:
+        T.color_match_device, T.color_mod_device = real
+    return out
+
+
+def _omni_tracking_run(omni, dev, fused, cli_main, kernels, colour, run,
+                       extra):
+    """One tracking CLI run of phase_omni_tracking."""
+    for fn in kernels.values():
+        fn.launches = 0
+    for k in colour:
+        colour[k] = 0
+    log_dir = os.path.join(os.path.dirname(omni["tree"]),
+                           "log_omni_" + run.replace(", ", "_"))
+    buf = io.StringIO()
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(buf):
+            acc = cli_main(["--config", OMNI_CONFIG, "--log", log_dir,
+                            "--no-tensorboard", "--device", dev.type,
+                            "--override", f"data_root={omni['tree']},"
+                            f"tracking=True{extra}"])
+    except Exception:
+        print(buf.getvalue()[-6000:], flush=True)
+        raise
+    wall = time.time() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    text = buf.getvalue()
+    modes = [ln.split(":", 1)[1].strip() for ln in text.splitlines()
+             if ln.startswith("tracking :")]
+    routes = [ln.split(":", 1)[1].strip() for ln in text.splitlines()
+              if ln.startswith("route :")]
+    rows = _omni_csv(log_dir)
+    poses = np.array([[float(v) for v in r_[4].split()] for r_ in rows])
+    secs = [float(r_[8]) for r_ in rows]
+    dt = float(np.abs(poses - fused["winners"]).max())
+    tracked_s = float(np.median(secs[1:]))
+    log(f"omniscenes cli {run}: modes {modes}; routes {routes}; accuracy "
+        f"{acc}; t_err (m) {[round(float(r_[6]), 4) for r_ in rows]}; "
+        f"time (s) {[round(v, 4) for v in secs]}; median tracked frame "
+        f"{tracked_s:.4f} s against the fused run's median query "
+        f"{fused['s']:.4f} s; poses within {dt:.3g} m of the fused run's; "
+        f"wall {wall:.2f} s; launches {launches}")
+    if modes != ["seed"] + ["tracked"] * (OMNI_QUERIES - 1):
+        raise AssertionError(f"omniscenes {run}: modes {modes}")
+    if not all("device colour prep" in r_ for r_ in routes[1:]):
+        raise AssertionError(f"omniscenes {run}: tracked frames without "
+                             f"the device colour prep: {routes}")
+    # sharpen_color changes every frame's colours, so only the run
+    # without it is held to the fused run's poses
+    if not (acc == 1.0 and (extra or dt < 1e-2)):
+        raise AssertionError(f"omniscenes {run}: accuracy {acc}, poses "
+                             f"{dt} m from the fused run's")
+    # stage 2 of the seed and color_match_device of each tracked frame;
+    # color_mod_device of each tracked frame
+    tracked = OMNI_QUERIES - 1
+    want_bh, want_mh = OMNI_QUERIES, (tracked if extra else 0)
+    if ((launches["block_histogram"], launches["masked_histogram_counts"])
+            != (want_bh, want_mh)
+            or colour != {"block_histogram": tracked,
+                          "masked_histogram_counts": want_mh}):
+        raise AssertionError(f"omniscenes {run}: launches {launches}, in "
+                             f"the tracked frames' colour prep {colour}")
+    return dict(launches=launches, colour=dict(colour),
+                tracked_s=tracked_s)
+
+
+def phase_omni_track_profile(o, dev, median_s):
+    """One tracked frame (the device colour prep and the 30-iteration
+    descent from the fused winner) under torch.profiler."""
+    from piccolo_tpu_torch.color import cloud_color_cdf
+    from piccolo_tpu_torch.convert import cdf_from_numpy
+    from piccolo_tpu_torch.data import obtain_gt_omniscenes
+    from piccolo_tpu_torch.harness.imaging import imread_rgb
+    from piccolo_tpu_torch.harness.localize import resize_ablate_omniscenes
+    from piccolo_tpu_torch.tracking import (
+        track_kwargs,
+        track_step_prepped_fetched,
+        ypr_from_rot,
+    )
+
+    room = o["room"]
+    img_u8 = resize_ablate_omniscenes(o["cfg"], imread_rgb(o["gt"]))
+    cdf = cdf_from_numpy(cloud_color_cdf(room["rgb_np"]), dev)
+    gt_t, gt_r = obtain_gt_omniscenes(o["gt"])
+    t0 = np.asarray(gt_t, np.float32).reshape(3) + np.float32([0.03, -0.02, 0])
+    y0 = ypr_from_rot(np.asarray(gt_r).reshape(3, 3))
+
+    def run():
+        return track_step_prepped_fetched(
+            img_u8, room["xyz"], room["rgb"], t0, y0, room["lo"], room["hi"],
+            room["mask"], cdf=cdf, device=dev, **track_kwargs(o["cfg"]))
+
+    t, _, _, _ = run()  # warm-up
+    log(f"tracked frame from 3 cm off: t_err "
+        f"{np.linalg.norm(t - np.ravel(gt_t)):.4f} m")
+    profile_query("tracked frame", run, median_s)
+
+
+def phase_serving(dev, tmp, cli_tree):
+    """configs/stanford.ini served by LocalizeService on the CLI room
+    (60,000 points, 1024x512), warmed at load, behind serve_forever on
+    loopback: /healthz, 10 /localize requests by image_path and one by
+    image_b64, each bit-equal to _run_fused on the same room and image
+    (p50 and p90 of total_s); a tracked request chained through prev_pose;
+    a recover_above request that recovers; one request under
+    torch.profiler.  Then room = "auto" under the shipped config over the
+    CLI room and a second ray-cast office (ROOM_AUTO_TREE), by a full query
+    per room and with room_auto_probe = "batched" (the per-room probe):
+    each query's room scores must rank the rooms as ROOM_AUTO_RECORD says;
+    and one easy case, the CLI room repainted (colours inverted), whose
+    repainted query must pick it.  Returns the served requests' total_s and
+    launches."""
+    import base64
+    import urllib.request
+
+    from piccolo_tpu_torch.config import apply_overrides, parse_ini
+    from piccolo_tpu_torch.data import obtain_gt_stanford, read_stanford
+    from piccolo_tpu_torch.harness.imaging import imread_rgb, imwrite_rgb
+    from piccolo_tpu_torch.harness.localize import _run_fused
+    from piccolo_tpu_torch.kernels import slab_sampling as slab
+    from piccolo_tpu_torch.kernels.block_histogram import block_histogram
+    from piccolo_tpu_torch.serve import LocalizeService, serve_forever
+    from piccolo_tpu_torch.testing import write_synth_stanford
+    from piccolo_tpu_torch.tracking import ypr_from_rot
+
+    panos = sorted(glob.glob(os.path.join(cli_tree, "stanford", "pano",
+                                          "area_1", "*.png")))
+    pcd = os.path.join(cli_tree, "stanford", "pcd_not_aligned", "area_1",
+                       "office_1.txt")
+    # the second room: ROOM_AUTO_TREE's office_2; its office_1 and first
+    # panorama are the CLI room and its first query, file for file
+    auto_tree = os.path.join(tmp, "auto")
+    write_synth_stanford(auto_tree, **ROOM_AUTO_TREE)
+    auto_pcds = sorted(glob.glob(os.path.join(
+        auto_tree, "stanford", "pcd_not_aligned", "area_1", "*.txt")))
+    auto_panos = sorted(glob.glob(os.path.join(
+        auto_tree, "stanford", "pano", "area_1", "*.png")))
+    for a, b in ((auto_pcds[0], pcd), (auto_panos[0], panos[0])):
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            if fa.read() != fb.read():
+                raise AssertionError(f"{a} differs from the CLI tree's {b}")
+    pcd2 = auto_pcds[1]
+    # the easy case: the CLI room and its first query repainted
+    xyz, rgb = read_stanford(pcd, 1)
+    pcd_inv = os.path.join(tmp, "office_1_repainted.txt")
+    np.savetxt(pcd_inv, np.concatenate([xyz, 255.0 - rgb * 255.0], 1),
+               fmt="%.6f")
+    pano_inv = os.path.join(tmp, "query_repainted.png")
+    imwrite_rgb(pano_inv, 255 - imread_rgb(panos[0]))
+    cfg = parse_ini(CONFIG)
+    kernels = {fn.__name__: fn for fn in (
+        slab.slab_group_sums_f32, slab.slab_group_sums_compact,
+        slab.slab_group_sums_q8, block_histogram)}
+    svc = LocalizeService(cfg, max_rooms=2, device=dev)
+    t0 = time.time()
+    svc.load_room(xyz.astype(np.float32), rgb.astype(np.float32), name=pcd,
+                  warm_shape=(512, 1024))
+    log(f"serving: room {pcd} loaded and warmed at 1024x512 in "
+        f"{time.time() - t0:.2f} s")
+    cache = svc._rooms[pcd][0]
+    want = {}
+    for p in panos:
+        img = imread_rgb(p)
+        ii, im, ru, _ = svc._prepare(img, cache)
+        res, _ = _run_fused(ii, im, cache, ru, svc.cfg, svc.init_dict,
+                            cache["grids"], sync_plans=True)
+        want[p] = (res.t.cpu().numpy(), float(res.loss))
+
+    ready = threading.Event()
+    th = threading.Thread(target=serve_forever, args=(svc, "127.0.0.1", 0,
+                                                      ready), daemon=True)
+    th.start()
+    if not ready.wait(30):
+        raise AssertionError("the server did not start")
+    server = ready.server
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def post(path, payload):
+        req = urllib.request.Request(f"{base}{path}",
+                                     data=json.dumps(payload).encode(),
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return json.loads(r.read())
+
+    def check(p, out):
+        t, loss = want[p]
+        if not (np.array_equal(np.float32(out["t"]), t)
+                and out["loss"] == loss):
+            raise AssertionError(f"served answer for {p} differs from "
+                                 f"_run_fused: {out['t']} vs {t}")
+
+    def check_auto(mode, p, out):
+        """Query ``p``'s room and room scores are as recorded."""
+        scores = out["room_scores"]
+        got = (os.path.basename(out["room"]), [
+            os.path.basename(k) for k in sorted(
+                scores,
+                key=lambda k: math.inf if scores[k] is None else scores[k])])
+        query = os.path.basename(p).split("_")[1]
+        if got != ROOM_AUTO_RECORD[mode][query]:
+            raise AssertionError(
+                f"room=auto (room_auto_probe={mode}) picked {got[0]} and "
+                f"ranked {got[1]} for query {query}, recorded "
+                f"{ROOM_AUTO_RECORD[mode][query]}: {scores}")
+        return got
+
+    try:
+        with urllib.request.urlopen(f"{base}/healthz", timeout=30) as r:
+            health = json.loads(r.read())
+        if not (health["ok"] and health["rooms"] == [pcd]):
+            raise AssertionError(f"healthz {health}")
+        for fn in kernels.values():
+            fn.launches = 0
+        totals = []
+        for i in range(SERVED_REQUESTS):
+            p = panos[i % len(panos)]
+            out = post("/localize", {"image_path": p})
+            check(p, out)
+            totals.append(out["total_s"])
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        with open(panos[1], "rb") as f:
+            out = post("/localize", {"image_b64": base64.b64encode(
+                f.read()).decode()})
+        check(panos[1], out)
+        p50, p90 = (float(np.percentile(totals, q)) for q in (50, 90))
+        log(f"serving: {SERVED_REQUESTS} requests by image_path and 1 by "
+            f"image_b64, each bit-equal to _run_fused; total_s p50 {p50:.4f} "
+            f"p90 {p90:.4f} (all {[round(v, 4) for v in totals]}); launches "
+            f"over the {SERVED_REQUESTS} {launches}")
+
+        first = post("/localize", {"image_path": panos[0]})
+        prev = {"t": first["t"],
+                "ypr": ypr_from_rot(np.array(first["rot"])).tolist()}
+        chain = []
+        for _ in range(2):
+            out = post("/localize", {"image_path": panos[0],
+                                     "prev_pose": prev})
+            if not out.get("tracked") or out.get("recovered"):
+                raise AssertionError(f"tracked request not tracked: {out}")
+            prev = {"t": out["t"], "ypr": out["ypr"]}
+            chain.append(out)
+        gt_t, _ = obtain_gt_stanford(cli_tree, 1, os.path.basename(panos[0]))
+        dt = float(np.linalg.norm(np.float32(chain[-1]["t"]) - np.ravel(gt_t)))
+        if not dt < 0.05:
+            raise AssertionError(f"the tracked requests end {dt} m from the "
+                                 "truth")
+        # from pano 0's pose, 30 tracked iterations cannot reach pano 1's
+        # optimum: a loss over 1.1x the full answer's means tracking is lost
+        rec = post("/localize", {"image_path": panos[1], "prev_pose": prev,
+                                 "recover_above": want[panos[1]][1] * 1.1})
+        if not rec.get("recovered"):
+            raise AssertionError(f"recover_above did not recover: {rec}")
+        check(panos[1], rec)
+        log(f"serving: 2 tracked requests chained through prev_pose "
+            f"(total_s {[round(o_['total_s'], 4) for o_ in chain]}, t_err "
+            f"{dt:.4f} m); a recover_above request "
+            f"recovered to the full answer (total_s {rec['total_s']:.4f})")
+        img0 = imread_rgb(panos[0])
+        profile_query("served request", lambda: svc.localize(img0), p50)
+
+        # room = "auto", a full query per room: the second room's query
+        # first, so that the CLI room is the most recently used after
+        room2 = post("/room", {"pcd_path": pcd2})
+        if room2["room"] != pcd2 or svc.rooms != [pcd, pcd2]:
+            raise AssertionError(f"/room: {room2}, {svc.rooms}")
+        for p in (auto_panos[1], panos[0]):
+            out = post("/localize", {"image_path": p, "room": "auto"})
+            picked, order = check_auto("False", p, out)
+            log(f"serving: room=auto, a full query per room: "
+                f"{os.path.basename(p).split('_')[1]} picked {picked}, "
+                f"ranked {order} as recorded (scores {out['room_scores']}, total_s "
+                f"{out['total_s']:.4f})")
+        # the easy case: the repainted room evicts the second one
+        post("/room", {"pcd_path": pcd_inv})
+        out = post("/localize", {"image_path": pano_inv, "room": "auto"})
+        if out["room"] != pcd_inv:
+            raise AssertionError(f"room=auto chose {out['room']} for the "
+                                 f"repainted query: {out['room_scores']}")
+        log(f"serving: room=auto chose the repainted room for the repainted "
+            f"query (scores {out['room_scores']}, total_s "
+            f"{out['total_s']:.4f})")
+    finally:
+        server.shutdown()
+        server.server_close()
+    del svc
+
+    # room_auto_probe = "batched": the per-room probe, then the full
+    # queries of the rooms within the margin
+    auto = LocalizeService(apply_overrides(cfg, "room_auto_probe=batched"),
+                           max_rooms=2, device=dev)
+    for name in (pcd, pcd2):
+        x, c = read_stanford(name, 1)
+        auto.load_room(x.astype(np.float32), c.astype(np.float32), name=name)
+    probes = []
+    real = auto._probe_room
+    auto._probe_room = lambda *a: probes.append(a[1]) or real(*a)
+    for p in (auto_panos[1], panos[0]):
+        n = len(probes)
+        out = auto.localize(imread_rgb(p), room="auto")
+        picked, order = check_auto("True", p, out)
+        if len(probes) - n != 2:
+            raise AssertionError(f"{len(probes) - n} probes for 2 rooms")
+        log(f"serving: room=auto, room_auto_probe=batched (per-room probe): "
+            f"{os.path.basename(p).split('_')[1]} picked {picked}, ranked "
+            f"{order} as recorded (scores {out['room_scores']}, total_s {out['total_s']:.4f})")
+    del auto
+    torch.cuda.empty_cache()
+    return dict(p50=p50, p90=p90, launches=launches, totals=totals)
+
+
 def timed(name, fn, *args):
     t0 = time.time()
     out = fn(*args)
@@ -1444,14 +1973,21 @@ def main():
         rows += timed("layout kernels", phase_layout_kernels, cli, dev)
         torch.cuda.empty_cache()
         launched = timed("cli", phase_cli, cli, dev)
+        cli_tree = cli["tree"]
         del cli
         torch.cuda.empty_cache()
+        timed("serving", phase_serving, dev, tmp, cli_tree)
         omni = timed("omniscenes tree", phase_omni_tree, tmp)
         o = timed("omniscenes room", phase_omni_room, dev, omni)
         omni_rows = timed("omniscenes kernels", phase_omni_kernels, o, dev)
         runs = timed("omniscenes cli", phase_omni_cli, omni, dev)
         timed("omniscenes profile", phase_omni_profile, o, dev,
               runs["fused"]["s"])
+        track_rows = timed("omniscenes colour", phase_omni_colour, o, dev)
+        tracking = timed("omniscenes tracking", phase_omni_tracking, omni,
+                         dev, runs["fused"])
+        timed("tracked frame profile", phase_omni_track_profile, o, dev,
+              tracking["tracking"]["tracked_s"])
         del o
         fused = runs["fused"]["launches"]
         for row in omni_rows:
@@ -1459,18 +1995,35 @@ def main():
             row["launches"] = fused[kernel]
             row["launches_per_query"] = fused[kernel] / OMNI_QUERIES
             row["path"] = "omniscenes cli fused"
-        rows += omni_rows
+        # the tracked frames' colour prep, at the shapes these rows time:
+        # block_histogram in color_match_device, masked_histogram_counts in
+        # color_mod_device (sharpen_color); the seed frame's stage 2 is
+        # not counted here
+        for row in track_rows:
+            kernel = row["name"].split(".")[0]
+            run = ("tracking" if kernel == "block_histogram"
+                   else "tracking, sharpen_color")
+            row["launches"] = tracking[run]["colour"][kernel]
+            row["launches_per_query"] = row["launches"] / (OMNI_QUERIES - 1)
+            row["path"] = (f"omniscenes cli {run}, tracked frames' colour "
+                           "prep")
+        rows += omni_rows + track_rows
+        n = tracking["tracking, sharpen_color"]["colour"][
+            "masked_histogram_counts"]
+        launched["masked_histogram_counts"] = (
+            n, OMNI_QUERIES - 1, "omniscenes cli tracking, sharpen_color, "
+            "tracked frames' colour prep")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for row in rows:
         if "path" in row:
             continue
-        # launches: the CLI run that drives the kernel; the masked
-        # histogram runs on no query path
+        # launches: the CLI run that drives the kernel
         n, n_q, run = launched.get(row["name"], (0, None, None))
         row["launches"] = n
         row["launches_per_query"] = None if n_q is None else n / n_q
-        row["path"] = "no query path" if run is None else f"cli run {run}"
+        row["path"] = ("no query path" if run is None else run
+                       if run.startswith("omniscenes") else f"cli run {run}")
     keys = ("name", "route", "source", "replaces", "path", "launches",
             "launches_per_query", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

@@ -1,7 +1,8 @@
 """Carry the JAX package's room state across to the port.
 
 The system has no model weights; its state is the room: the padded cloud,
-the candidate grids, the slab :class:`GridPlan` and the :class:`HistPlan`.
+the candidate grids, the slab :class:`GridPlan`, the :class:`HistPlan` and,
+for tracked frames, the cloud's colour CDF and ``SharpenState``.
 Given as numpy arrays (``np.asarray`` of the JAX package's arrays), they
 become the port's tensors.  Both packages keep the same stream layouts, so
 converting is a copy.
@@ -14,11 +15,13 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from .color import SharpenState, SharpenTensors
 from .device import resolve_device
 from .init.refine import HistPlan
 from .kernels.slab_sampling import GridPlan
 
-__all__ = ["grid_plan_from_numpy", "hist_plan_from_numpy", "cloud_from_numpy"]
+__all__ = ["grid_plan_from_numpy", "hist_plan_from_numpy", "cloud_from_numpy",
+           "cdf_from_numpy", "sharpen_state_from_numpy"]
 
 
 def grid_plan_from_numpy(fields: Sequence[np.ndarray],
@@ -61,3 +64,28 @@ def cloud_from_numpy(xyz: np.ndarray, rgb: np.ndarray, mask: np.ndarray,
     return (torch.tensor(np.asarray(xyz, np.float32), device=dev),
             torch.tensor(np.asarray(rgb, np.float32), device=dev),
             torch.tensor(np.asarray(mask, bool), device=dev))
+
+
+def cdf_from_numpy(cdf: Tuple[np.ndarray, np.ndarray],
+                   device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+    """A room's ``(values, quant)`` pair from ``color.cloud_color_cdf``,
+    (3, K) f32 each."""
+    dev = resolve_device(device)
+    return tuple(torch.tensor(np.asarray(a, np.float32), device=dev)
+                 for a in cdf)
+
+
+def sharpen_state_from_numpy(state: SharpenState,
+                             device="cuda") -> SharpenTensors:
+    """A room's ``color.SharpenState`` (the JAX package's one-hot layout) as
+    the Y histogram, each point's Y level and its Cr/Cb on ``device``.  A
+    pad row (zero one-hots) gets level 256, which ``color_mod_device`` maps
+    to 0, as the JAX package's zero one-hot selects 0."""
+    dev = resolve_device(device)
+    oh_hi, oh_lo = np.asarray(state.oh_hi), np.asarray(state.oh_lo)
+    y = np.where(oh_hi.any(1), oh_hi.argmax(1) * 16 + oh_lo.argmax(1), 256)
+    return SharpenTensors(
+        y_hist=torch.tensor(np.asarray(state.y_hist, np.float32), device=dev),
+        y=torch.tensor(y.astype(np.int64), device=dev),
+        crcb=torch.tensor(np.asarray(state.crcb).astype(np.int32), device=dev),
+    )

@@ -23,10 +23,15 @@ the H100 a plan builds faster than it loads from the disk (PERF.md).  A
 plan build that fails demotes stage 1 to the gather engine; the kernels'
 own build and launch errors are never caught.
 
+``tracking = True`` on the OmniScenes CLI warm-starts each video frame
+after the first from the previous frame's pose (``tracking.py``); tracked
+frames whose colour prep can run on the device take the uint8 frame there
+(``tracking.track_step_prepped_fetched``).
+
 The CPU rule of the JAX package (``auto`` plans off on the CPU backend)
 becomes: ``auto`` plans are off when the room lives on the CPU.  Config
-keys of later slices (tracking, multi-device, profiling, the executable
-cache) raise ``NotImplementedError`` naming the slice; none is ignored.
+keys of later slices (multi-device, profiling, the executable cache) raise
+``NotImplementedError`` naming the slice; none is ignored.
 """
 
 from __future__ import annotations
@@ -374,7 +379,7 @@ def _run_staged(img_init, img_main, cache, rgb_used, cfg, init_dict,
 
 def _localize_one(b, cache, cfg, init_dict, fused: bool, want_traj: bool):
     """One query by the fused or the staged path: a dict with the winner
-    index ``k``, its ``t``, ``R`` and ``loss`` on the host, the starting
+    index ``k``, its ``t``, ``R``, ``ypr`` and ``loss`` on the host, the starting
     poses ``trans0``/``rot0`` (numpy), the printed ``route`` and ``traj``
     (None unless ``want_traj``)."""
     if fused:
@@ -384,8 +389,10 @@ def _localize_one(b, cache, cfg, init_dict, fused: bool, want_traj: bool):
         traj = None
         if want_traj:
             fres, traj = fres
-        return dict(k=int(fres.winner), t=fres.t.cpu().numpy(),
-                    R=fres.rot.cpu().numpy(), loss=float(fres.loss),
+        k = int(fres.winner)
+        return dict(k=k, t=fres.t.cpu().numpy(), R=fres.rot.cpu().numpy(),
+                    ypr=fres.cand_ypr[k].cpu().numpy(),
+                    loss=float(fres.loss),
                     trans0=fres.start_t.cpu().numpy(),
                     rot0=fres.start_ypr.cpu().numpy(), route=route, traj=traj)
     res, traj, (trans0, rot0) = _run_staged(
@@ -393,7 +400,8 @@ def _localize_one(b, cache, cfg, init_dict, fused: bool, want_traj: bool):
         want_traj)
     k = int(torch.argmin(res.loss))
     return dict(k=k, t=res.t[k].cpu().numpy(), R=res.rot[k].cpu().numpy(),
-                loss=float(res.loss[k]), trans0=trans0, rot0=rot0,
+                ypr=res.ypr[k].cpu().numpy(), loss=float(res.loss[k]),
+                trans0=trans0, rot0=rot0,
                 route="staged: make_input, then descend", traj=traj)
 
 
@@ -406,7 +414,8 @@ def _check_config(cfg, init_dict) -> None:
     if cfg_get(cfg, "profile_dir"):
         raise _unported("profile_dir (per-query traces)", "profiling")
     if cfg_get(cfg, "exec_cache_dir"):
-        raise _unported("exec_cache_dir (the executable cache)", "serving")
+        raise _unported("exec_cache_dir (the executable cache)",
+                        "executable-cache")
     if cfg_get(cfg, "gravity_aligned", True) is False:
         raise NotImplementedError(
             "gravity_aligned=False needs an alignment matrix estimator; the "
@@ -876,9 +885,16 @@ def _plan_route(plan, hist_plan, n_real_pairs, criterion) -> str:
 
 
 def _run_fused(img_init, img_main, cache, rgb_used, cfg, init_dict, grids,
-               sync_plans=False, want_traj=False):
+               sync_plans=False, want_traj=False, probe=False):
     """One query through ``localize_query`` on the room's device; returns
-    (result or (result, traj), route)."""
+    (result or (result, traj), route).
+
+    ``probe=True`` is serving's per-room ``room = "auto"`` probe: a
+    truncated query whose winner loss only ranks rooms.  Stages 1 and 2 as
+    usual (the room's plans compose unchanged), then a short pruned descent
+    at the INIT resolution (``img_main := img_init``,
+    ``room_auto_probe_iters`` iterations, prune ``(max(1, n // 3),
+    min(2, num_input))``, multires off)."""
     criterion = cfg_get(cfg, "criterion", "loss_histogram")
     kw = dict(
         num_intermediate=cfg_get(cfg, "num_intermediate", 20),
@@ -891,6 +907,13 @@ def _run_fused(img_init, img_main, cache, rgb_used, cfg, init_dict, grids,
         factor=cfg_get(cfg, "factor", 0.9),
         criterion=criterion,
     )
+    prune = _cfg_prune(cfg, want_traj)
+    multires = _cfg_multires(cfg, want_traj)
+    if probe:
+        img_main = img_init
+        kw["num_iter"] = int(cfg_get(cfg, "room_auto_probe_iters", 30))
+        prune = (max(1, kw["num_iter"] // 3), min(2, kw["num_input"]))
+        multires = None
     plan = _maybe_slab_plan(cfg, cache, grids, img_init, sync=sync_plans)
     # a budget-truncated partial plan covers fewer pairs than the grids'
     # real rows: the gather engine scores the uncovered tail
@@ -910,8 +933,7 @@ def _run_fused(img_init, img_main, cache, rgb_used, cfg, init_dict, grids,
         plan_refresh_rgb=plan is not None and rgb_used is not cache["rgb"],
         descent_table=cfg_get(cfg, "descent_table", "auto"),
         seam_wrap=bool(cfg_get(cfg, "seam_wrap", False)),
-        trajectory=want_traj, descent_prune=_cfg_prune(cfg, want_traj),
-        descent_multires=_cfg_multires(cfg, want_traj),
+        trajectory=want_traj, descent_prune=prune, descent_multires=multires,
         device=cache["device"], **kw,
     )
     return out, _plan_route(plan, hist_plan, n_real_pairs, criterion)
@@ -1158,12 +1180,60 @@ def localize_stanford(cfg, writer=None, log_dir: str = "./log",
 # OmniScenes
 
 
+def _track_fast_ok(cfg) -> bool:
+    """Whether tracked frames take the device colour prep: not when a frame
+    needs a host surface (``save_starting_point`` renders against the
+    colour-processed uint8 image), and colour modes only at main size (so
+    device and host apply colour and resize in the same order) and, for
+    ``sharpen_color``, the 256-bin default.  ``track_fast_prep = False``
+    forces the host prep."""
+    main_full = (cfg_get(cfg, "main_downsample_h", 1) == 1
+                 and cfg_get(cfg, "main_downsample_w", 1) == 1)
+    return bool(
+        cfg_get(cfg, "track_fast_prep", True)
+        and not cfg_get(cfg, "save_starting_point", False)
+        and (not cfg_get(cfg, "match_color", False) or main_full)
+        and (not cfg_get(cfg, "sharpen_color", False)
+             or (main_full and cfg_get(cfg, "num_bins", 256) == 256))
+    )
+
+
+def _room_colour_state(cfg, room) -> None:
+    """The room-static colour state of tracked frames' device prep, on the
+    room's device: the cloud's CDF (``match_color``) and its sharpen state
+    (``sharpen_color``)."""
+    from ..color import cloud_color_cdf, cloud_sharpen_state
+    from ..convert import cdf_from_numpy, sharpen_state_from_numpy
+
+    if cfg_get(cfg, "match_color", False):
+        room["cdf"] = cdf_from_numpy(cloud_color_cdf(room["rgb_np"]),
+                                     room["device"])
+    if cfg_get(cfg, "sharpen_color", False):
+        room["sharpen"] = sharpen_state_from_numpy(
+            cloud_sharpen_state(room["rgb_np"], pad_to=int(room["mask"].shape[0]),
+                                num_bins=cfg_get(cfg, "num_bins", 256)),
+            room["device"])
+
+
 def localize_omniscenes(cfg, writer=None, log_dir: str = "./log",
                         device="cuda") -> float:
     """Evaluate every OmniScenes query panorama on ``device``.  Returns the
-    accuracy.  ``tracking = True`` belongs to a later slice and raises."""
-    if cfg_get(cfg, "tracking", False):
-        raise _unported("tracking = True", "tracking")
+    accuracy.
+
+    ``tracking = True`` (a video extension with no reference counterpart):
+    each video's first frame runs the full query; every later frame runs
+    ONE descent warm-started from the previous frame's pose
+    (``track_num_iter``, ``track_lr``, ``track_patience``,
+    ``track_factor``).  A frame whose loss diverges (non-finite, or above
+    ``track_recover_ratio`` x the rolling median of the last
+    ``track_window`` accepted losses) runs the full query instead and
+    re-seeds.  Frames predicted tracked take the device colour prep when
+    :func:`_track_fast_ok`: the prefetch thread does only the uint8 head
+    (resize, ablations, main resize); the consumer thread copies the uint8
+    frame to the card on its own current stream, so the copy is ordered
+    before the colour prep and the descent that read it.  A prediction
+    that misses finishes the host prep from that head.
+    """
     init_dict, dev, fused = _setup_run(cfg, device, log_dir)
     data_root = cfg_get(cfg, "data_root", "./data")
     split_name = cfg_get(cfg, "split_name", "extreme")
@@ -1196,6 +1266,24 @@ def localize_omniscenes(cfg, writer=None, log_dir: str = "./log",
     prefetch_on = cfg_get(cfg, "host_prefetch", True)
     prep_cache = {"pcd": None}
 
+    tracking_on = bool(cfg_get(cfg, "tracking", False))
+    track_prev: Dict = {"video": None}
+    fast_ok = tracking_on and _track_fast_ok(cfg)
+    fast_track: set = set()
+    if tracking_on:
+        from ..tracking import (
+            DivergenceGate,
+            track_kwargs,
+            track_step_fetched,
+            track_step_prepped_fetched,
+        )
+
+        track_gate = DivergenceGate(
+            window=cfg_get(cfg, "track_window", 8),
+            ratio=cfg_get(cfg, "track_recover_ratio", 3.0),
+        )
+        track_kw = track_kwargs(cfg)
+
     def _prepare(filename):
         video_name = filename.split(os.sep)[-2]
         img_seq = os.path.basename(filename)
@@ -1204,26 +1292,51 @@ def localize_omniscenes(cfg, writer=None, log_dir: str = "./log",
         pcd_name = data_mod.omniscenes_pcd_path(data_root, room_type, room_no)
         if prep_cache["pcd"] != pcd_name:
             prep_cache.clear()
-            prep_cache.update(pcd=pcd_name, room=_load_room(
-                data_mod.read_omniscenes, pcd_name, sample_rate, out_q, dev,
-                init_dict if fused else None))
+            room = _load_room(data_mod.read_omniscenes, pcd_name, sample_rate,
+                              out_q, dev, init_dict if fused else None)
+            if fast_ok:
+                _room_colour_state(cfg, room)
+            prep_cache.update(pcd=pcd_name, room=room)
         room = prep_cache["room"]
         raw = imread_rgb(filename)  # the JPEG decode, on this thread
         gt_trans, gt_rot = data_mod.obtain_gt_omniscenes(filename)
+        b = dict(video_name=video_name, img_seq=img_seq,
+                 img_name=f"{video_name}/{img_seq}", room=room,
+                 gt_trans=gt_trans, gt_rot=gt_rot)
+        if filename in fast_track:
+            # a predicted tracked frame: only the uint8 head here; its
+            # colour prep runs on the card with the descent
+            rt0 = time.time()
+            orig_u8 = resize_ablate_omniscenes(cfg, raw)
+            H0, W0 = orig_u8.shape[:2]
+            main_u8 = resize(
+                orig_u8, (W0 // cfg_get(cfg, "main_downsample_w", 1),
+                          H0 // cfg_get(cfg, "main_downsample_h", 1)))
+            b.update(fast=True, orig_u8=orig_u8, img_u8=main_u8,
+                     rgb_used=room["rgb"], shape=(H0, W0),
+                     prep_timed=time.time() - rt0)
+            return b
         orig, img_init, img_main, rgb_used, prep_timed = (
             prepare_omniscenes_images(cfg, raw, room))
-        return dict(
-            video_name=video_name, img_seq=img_seq,
-            img_name=f"{video_name}/{img_seq}", room=room, orig=orig,
-            img_init=img_init, img_main=img_main, rgb_used=rgb_used,
-            gt_trans=gt_trans, gt_rot=gt_rot, prep_timed=prep_timed,
-        )
+        b.update(orig=orig, img_init=img_init, img_main=img_main,
+                 rgb_used=rgb_used, shape=orig.shape[:2],
+                 prep_timed=prep_timed)
+        return b
 
     pending_idx = [
         i for i, f in enumerate(filenames)
         if f"{f.split(os.sep)[-2]}/{os.path.basename(f)}" not in csv_out.done
     ]
     pending = [filenames[i] for i in pending_idx]
+    if fast_ok:
+        # predicted tracked: not the first pending frame of its video (the
+        # consumer's track_prev test; misses finish the host prep inline)
+        prev_vid = None
+        for f in pending:
+            vid = f.split(os.sep)[-2]
+            if vid == prev_vid:
+                fast_track.add(f)
+            prev_vid = vid
     prev_room = None
     with AsyncWriter(enabled=prefetch_on) as artifacts:
         for trial, (filename, outcome) in zip(
@@ -1231,13 +1344,13 @@ def localize_omniscenes(cfg, writer=None, log_dir: str = "./log",
         ):
             try:
                 b = Prefetcher.unwrap(outcome)
-                img_name = b["img_name"]
+                img_name, video_name = b["img_name"], b["video_name"]
                 cache = b["room"]
                 if prev_room is not None and prev_room is not cache:
                     _drop_slab_plans(prev_room)
                 prev_room = cache
                 gt_trans, gt_rot = b["gt_trans"], b["gt_rot"]
-                H0, W0 = b["orig"].shape[:2]
+                H0, W0 = b["shape"]
 
                 if _outside_bounds(cache["lo"], cache["hi"], gt_trans):
                     print(f"corrupted file : {filename}, gt_trans is out of the room\n")
@@ -1248,23 +1361,65 @@ def localize_omniscenes(cfg, writer=None, log_dir: str = "./log",
                     continue
 
                 start = time.time()
-                q = _localize_one(b, cache, cfg, init_dict, fused, False)
-                t, R = q["t"], q["R"]
+                tracked = recovered = False
+                if tracking_on and track_prev["video"] == video_name:
+                    box = (cache["lo"], cache["hi"], cache["mask"])
+                    if b.get("fast"):
+                        t, ypr_next, R, loss_k = track_step_prepped_fetched(
+                            b["img_u8"], cache["xyz"], cache["rgb"],
+                            track_prev["t"], track_prev["ypr"], *box,
+                            cdf=cache.get("cdf"), sharpen=cache.get("sharpen"),
+                            device=cache["device"], **track_kw)
+                        route = "tracked: one warm-started descent, device colour prep"
+                    else:
+                        t, ypr_next, R, loss_k = track_step_fetched(
+                            b["img_main"], cache["xyz"], b["rgb_used"],
+                            track_prev["t"], track_prev["ypr"], *box,
+                            device=cache["device"], **track_kw)
+                        route = "tracked: one warm-started descent"
+                    if not track_gate.diverged(loss_k):
+                        tracked = True
+                        k = 0
+                        trans0 = track_prev["t"][None]
+                        rot0 = track_prev["ypr"][None]
+                        track_gate.accept(loss_k)
+                    else:
+                        recovered = True
+                if not tracked:
+                    if b.get("fast"):
+                        # the prediction missed (a recovery, or a seed after
+                        # an errored frame): finish the host prep here
+                        orig, img_init, img_main, rgb_used, _ = (
+                            finish_omniscenes_images(cfg, b["orig_u8"], cache))
+                        b.update(orig=orig, img_init=img_init,
+                                 img_main=img_main, rgb_used=rgb_used)
+                    q = _localize_one(b, cache, cfg, init_dict, fused, False)
+                    k, t, R, loss_k = q["k"], q["t"], q["R"], q["loss"]
+                    trans0, rot0, route = q["trans0"], q["rot0"], q["route"]
+                    ypr_next = q["ypr"]
+                    if tracking_on:
+                        track_gate.reset()  # a fresh loss regime
+                if tracking_on:
+                    track_prev.update(
+                        video=video_name,
+                        t=np.asarray(t, np.float32).reshape(3),
+                        ypr=np.asarray(ypr_next, np.float32).reshape(3),
+                    )
                 if save_starts:
                     # rendered with the colour-processed cloud at half the
                     # 2048x1024 size, as the reference renders its starting
                     # points (localize.py:457-471, after the rebinds at
                     # :396-410)
                     Rs = rot_from_ypr(torch.as_tensor(
-                        np.asarray(q["rot0"], np.float32))).numpy()
-                    for idx in range(q["trans0"].shape[0]):
+                        np.asarray(rot0, np.float32))).numpy()
+                    for idx in range(trans0.shape[0]):
                         rendered = _result_render(
-                            q["trans0"][idx], Rs[idx], cache["xyz"],
+                            trans0[idx], Rs[idx], cache["xyz"],
                             b["rgb_used"], cache["mask"], (H0 // 2, W0 // 2))
                         artifacts.submit(
                             save_result_image,
                             os.path.join(
-                                log_dir, "starting_points", b["video_name"],
+                                log_dir, "starting_points", video_name,
                                 f"{b['img_seq'].split('.')[0]}_{idx}.png"),
                             b["orig"], rendered,
                         )
@@ -1277,9 +1432,13 @@ def localize_omniscenes(cfg, writer=None, log_dir: str = "./log",
                     summaries.add_text("failed rooms", filename)
 
                 print(f"\n{filename}")
-                print(f"route : {q['route']}")
-                print(f"min_index : {q['k']}")
-                print(f"min loss : {q['loss']}")
+                print(f"route : {route}")
+                print(f"min_index : {k}")
+                print(f"min loss : {loss_k}")
+                if tracking_on:
+                    mode = ("tracked" if tracked
+                            else "recovered" if recovered else "seed")
+                    print(f"tracking : {mode}")
                 print(f"translation error : {t_err}")
                 print(f"rotation error : {r_err}\n")
                 print(

@@ -1,0 +1,774 @@
+"""Persistent localization service (port of piccolo_tpu/serve.py).
+
+The reference is a batch evaluation script; deployments instead keep a
+card warm and answer single localization queries.  The service holds its
+rooms' device state resident (padded cloud, candidate grids, slab plans)
+and runs each query through the harness's own fused path
+(``harness.localize._run_fused``), so served poses equal the batch CLI's.
+A minimal stdlib HTTP JSON API sits on top.  No reference counterpart.
+
+Usage (library)::
+
+    svc = LocalizeService(num_trans=50, num_yaw=8, yaw_only=True)
+    svc.load_room(xyz, rgb)                  # or svc.load_room_pcd(path)
+    out = svc.localize(image)                # (H, W, 3) RGB uint8/float
+    out["t"], out["rot"], out["loss"], out["time_s"], out["total_s"]
+
+Usage (HTTP)::
+
+    python -m piccolo_tpu_torch.serve --config configs/stanford.ini \\
+        --pcd /data/room.txt --port 8321 [--device cpu]
+    curl -X POST localhost:8321/localize -d '{"image_path": "pano.png"}'
+
+The service runs on one card (``device="cuda"``, the default) unless the
+caller passes ``device="cpu"``.  Round-robin over several cards
+(``query_devices``) and the executable cache (``exec_cache_dir``,
+``--exec-cache``) belong to later slices of the port and raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import base64
+import json
+import threading
+import time
+from collections import OrderedDict
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from .config import cfg_get, make_config, parse_ini
+from .device import resolve_device
+from .harness.localize import (
+    _drop_slab_plans,
+    _FusedGrids,
+    _order_bounds,
+    _pad_cloud,
+    _run_fused,
+    _unported,
+    _use_fused,
+    get_init_dict,
+    prepare_omniscenes_images,
+    prepare_stanford_images,
+)
+
+__all__ = ["LocalizeService", "ServiceOverloaded", "serve_forever", "main"]
+
+
+class ServiceOverloaded(RuntimeError):
+    """Raised when admission would exceed ``max_pending`` in-flight
+    requests; the HTTP layer answers 503 with Retry-After."""
+
+
+_CFG_DEFAULTS = dict(
+    dataset="Stanford2D-3D-S",
+    sample_rate=1,
+    out_of_room_quantile=0.05,
+)
+
+
+class LocalizeService:
+    """Resident rooms on one device; ``localize()`` per query panorama.
+
+    Construct with a config namedtuple (``parse_ini`` output) or keyword
+    config values; every key the batch harness honors works here (init
+    budget, descent_table, slab_init, ...).  ``device``: the card
+    (``"cuda"``, the default; raises without one) or ``"cpu"``.
+    """
+
+    def __init__(self, cfg=None, max_rooms: int = 1, max_pending: int = 8,
+                 device="cuda", **cfg_kwargs):
+        if cfg is None:
+            cfg = make_config(**{**_CFG_DEFAULTS, **cfg_kwargs})
+        elif cfg_kwargs:
+            raise ValueError("pass cfg or keyword config values, not both")
+        self.cfg = cfg
+        self.init_dict = get_init_dict(cfg)
+        if not _use_fused(cfg, self.init_dict):
+            # the staged path's extras (init-only subsample, fused=False)
+            # have no serving counterpart
+            raise ValueError(
+                "serving runs the fused pipeline only; drop "
+                "sample_rate_for_init / unknown criterion (or fused="
+                "False) from the config"
+            )
+        if cfg_get(cfg, "visualize", False):
+            raise ValueError(
+                "serving returns no per-iteration artifacts; drop "
+                "visualize=True from the config"
+            )
+        if cfg_get(cfg, "query_devices") not in (None, 0, 1):
+            raise _unported("query_devices > 1 (queries round-robin over "
+                            "cards)", "multi-device")
+        if cfg_get(cfg, "n_devices") not in (None, 0, 1):
+            raise _unported("n_devices > 1 (one query sharded over a mesh)",
+                            "multi-device")
+        if cfg_get(cfg, "exec_cache_dir"):
+            raise _unported("exec_cache_dir (the executable cache)",
+                            "executable-cache")
+        self.device = resolve_device(device)
+        # one compute lock per device: requests prep on their own threads
+        # while one holds the card; the room registry has its own lock so
+        # health checks and loads never wait out a query
+        self._compute_locks = [threading.Lock()]
+        self._rooms_lock = threading.Lock()
+        # LRU of resident rooms; eviction drops a room's plans promptly (a
+        # room evicted mid-query lives on through the query's references)
+        self._rooms: "OrderedDict[str, Dict]" = OrderedDict()
+        self._max_rooms = max(1, int(max_rooms))
+        # admission bound: beyond max_pending admitted-but-unfinished
+        # requests, localize() raises ServiceOverloaded (HTTP 503)
+        self._max_pending = max(1, int(max_pending))
+        self._pending = 0
+        self._pending_lock = threading.Lock()
+
+    # -- health ------------------------------------------------------------
+
+    @property
+    def busy(self) -> bool:
+        """True while a request holds the device."""
+        return any(lk.locked() for lk in self._compute_locks)
+
+    @property
+    def devices(self) -> int:
+        """Query-parallel device count (one)."""
+        return len(self._compute_locks)
+
+    @property
+    def busy_devices(self) -> int:
+        return sum(lk.locked() for lk in self._compute_locks)
+
+    @property
+    def pending(self) -> int:
+        """Admitted, unfinished requests (prepping, waiting, or computing)."""
+        with self._pending_lock:
+            return self._pending
+
+    @property
+    def max_pending(self) -> int:
+        return self._max_pending
+
+    # -- room management ---------------------------------------------------
+
+    def load_room(self, xyz: np.ndarray, rgb: np.ndarray,
+                  name: str = "<arrays>",
+                  warm_shape: Optional[tuple] = None) -> None:
+        """Stage a colored cloud ((N, 3) xyz metres, (N, 3) rgb in [0, 1]).
+
+        ``warm_shape=(H, W)``: run one throwaway query at that panorama
+        shape now, so the room's slab plan builds (and the kernels load) at
+        load time and the first real query runs at steady-state latency.
+        """
+        if name == "auto":
+            raise ValueError(
+                'room name "auto" is reserved for localize(room="auto") '
+                "auto-selection — pick another name"
+            )
+        xyz = np.asarray(xyz, np.float32)
+        rgb = np.asarray(rgb, np.float32)
+        xyz_d, rgb_d, mask_d = _pad_cloud(xyz, rgb, self.device)
+        lo, hi = _order_bounds(
+            xyz, cfg_get(self.cfg, "out_of_room_quantile", 0.05))
+        cache = dict(pcd=name, xyz_np=xyz, rgb_np=rgb, xyz=xyz_d, rgb=rgb_d,
+                     mask=mask_d, lo=lo, hi=hi, device=self.device,
+                     grids=_FusedGrids(xyz, self.init_dict, self.device))
+        with self._rooms_lock:
+            self._rooms.pop(name, None)
+            self._rooms[name] = [cache]
+            while len(self._rooms) > self._max_rooms:
+                _, evicted = self._rooms.popitem(last=False)
+                for c in evicted:
+                    _drop_slab_plans(c)
+        if warm_shape is not None:
+            H, W = warm_shape
+            noise = np.random.default_rng(0).integers(
+                0, 256, (int(H), int(W), 3), dtype=np.uint8)
+            self._localize_checked(noise, room=name)
+
+    def load_room_pcd(self, path: str, dataset: Optional[str] = None) -> None:
+        """Load a room from an ``x y z r g b`` text cloud (either dataset's
+        format, reference data_utils.py:16,138)."""
+        from . import data as data_mod
+
+        ds = dataset or cfg_get(self.cfg, "dataset", "Stanford2D-3D-S")
+        reader = (data_mod.read_omniscenes if "mni" in ds
+                  else data_mod.read_stanford)
+        xyz, rgb = reader(path, cfg_get(self.cfg, "sample_rate", 1))
+        self.load_room(xyz.astype(np.float32), rgb.astype(np.float32), path)
+
+    @property
+    def room(self) -> Optional[str]:
+        """Most recently used room name (None before any load)."""
+        with self._rooms_lock:
+            return next(reversed(self._rooms)) if self._rooms else None
+
+    @property
+    def rooms(self):
+        """Resident room names, least- to most-recently used."""
+        with self._rooms_lock:
+            return list(self._rooms)
+
+    # -- query -------------------------------------------------------------
+
+    def localize(self, image: np.ndarray, room: Optional[str] = None,
+                 prev_pose=None, recover_above: Optional[float] = None) -> Dict:
+        """Localize one panorama against a resident room.
+
+        ``image``: (H, W, 3) RGB, uint8 or float in [0, 1] (floats are
+        requantized to uint8, the CLI's decode path, so served results
+        equal the batch harness's).  ``room`` selects a resident room
+        (default: the most recently used); ``room="auto"`` picks the room
+        whose localization loss is lowest and adds ``room_scores``
+        (``_select_room``).  Preprocessing is the harness's own per-query
+        prep.
+
+        Returns a dict with the winner pose (``t`` (3,), ``rot`` (3, 3)),
+        its ``loss``, ``winner``, the candidates' ``cand_loss``,
+        ``time_s`` (the reference's CSV timer: main resize + solve),
+        ``total_s`` (in-service latency, all prep and the result copy
+        included), ``room`` and ``device_index``.
+
+        ``prev_pose`` (``{"t": [x, y, z], "ypr": [yaw, pitch, roll]}``, the
+        fields a previous reply gives) switches the request to tracking: one
+        warm-started descent replaces the full pipeline; the client carries
+        the pose between frames.  ``recover_above``: when the tracked loss
+        exceeds it (tracking lost), the same request falls back to the full
+        pipeline and the reply sets ``recovered``.  ``room="auto"`` rejects
+        ``prev_pose``.
+        """
+        return self._localize_checked(image, room, prev_pose=prev_pose,
+                                      recover_above=recover_above)
+
+    def _localize_checked(self, image: np.ndarray, room: Optional[str],
+                          prev_pose=None,
+                          recover_above: Optional[float] = None) -> Dict:
+        if not self._rooms:
+            raise RuntimeError("no room loaded — call load_room[_pcd] first")
+        img = np.asarray(image)
+        if img.ndim != 3 or img.shape[2] != 3:
+            raise ValueError(f"expected (H, W, 3) RGB image, got {img.shape}")
+        if img.dtype != np.uint8:
+            img = np.clip(np.round(np.asarray(img, np.float32) * 255.0),
+                          0, 255).astype(np.uint8)
+
+        with self._pending_lock:
+            if self._pending >= self._max_pending:
+                raise ServiceOverloaded(
+                    f"{self._pending} requests already in flight "
+                    f"(max_pending={self._max_pending}); retry later"
+                )
+            self._pending += 1
+        try:
+            return self._localize_admitted(img, room, 0, prev_pose=prev_pose,
+                                           recover_above=recover_above)
+        finally:
+            with self._pending_lock:
+                self._pending -= 1
+
+    def _prepare(self, img: np.ndarray, cache: Dict):
+        """The harness's own per-query prep for this service's dataset."""
+        if "mni" in cfg_get(self.cfg, "dataset", "Stanford2D-3D-S"):
+            _, img_init, img_main, rgb_used, prep_timed = (
+                prepare_omniscenes_images(self.cfg, img, cache))
+        else:
+            img_init, img_main, rgb_used, prep_timed = (
+                prepare_stanford_images(self.cfg, img, cache))
+        return img_init, img_main, rgb_used, prep_timed
+
+    _PLAN_KEY_HEADS = ("slab_plan", "hist_plan")
+
+    def _resident_plan_bytes(self, exclude_cache, device_index: int) -> int:
+        """Device memory already held by OTHER resident rooms' plans."""
+        with self._rooms_lock:
+            rooms = list(self._rooms.values())
+        total = 0
+        for caches in rooms:
+            c = caches[device_index]
+            if c is exclude_cache:
+                continue
+            for k, v in list(c.items()):
+                if (isinstance(k, tuple) and k
+                        and k[0] in self._PLAN_KEY_HEADS):
+                    total += int(getattr(v, "nbytes", 0) or 0)
+        return total
+
+    def _budget_cfg(self, cache, device_index: int):
+        """Per-call cfg whose plan caps subtract the memory other resident
+        rooms' plans already hold on the device.
+
+        Plan admission budgets each room against a PER-PLAN cap; with
+        ``max_rooms > 1`` the sum of admitted plans could exceed the card.
+        Serving owns the resident set, so it lowers each room's cap to what
+        is left and admission demotes later rooms on its own ladder.
+        """
+        if self._max_rooms <= 1:
+            return self.cfg
+        other = self._resident_plan_bytes(cache, device_index)
+        if not other:
+            return self.cfg
+        from .kernels.slab_sampling import default_plan_bytes_cap
+
+        base = cfg_get(self.cfg, "slab_bytes_cap")
+        if base is None:
+            base = default_plan_bytes_cap(self.device)
+        hist_base = cfg_get(self.cfg, "hist_planes_bytes_cap")
+        overrides = dict(
+            self.cfg._asdict(),
+            slab_bytes_cap=max(0, int(base) - other),
+            hist_planes_bytes_cap=max(
+                0, int(hist_base if hist_base is not None else base) - other),
+        )
+        return make_config(**overrides)
+
+    def _compute_room(self, prep, cache, device_index: int) -> Dict:
+        """One full fused query against a room: the device work and ONE
+        packed copy of the result to the host, under the compute lock."""
+        img_init, img_main, rgb_used, prep_timed = prep
+        with self._compute_locks[device_index]:
+            t0 = time.time()
+            # plans build in line: warming exists to take this cost at load
+            res, _ = _run_fused(
+                img_init, img_main, cache, rgb_used,
+                self._budget_cfg(cache, device_index), self.init_dict,
+                cache["grids"], sync_plans=True,
+            )
+            packed = torch.cat([
+                res.t, res.rot.reshape(-1), res.loss.reshape(1),
+                res.winner.reshape(1).to(torch.float32), res.cand_loss,
+            ]).cpu().numpy()
+            elapsed = time.time() - t0 + prep_timed
+        return dict(
+            t=packed[:3], rot=packed[3:12].reshape(3, 3),
+            loss=float(packed[12]), winner=int(packed[13]),
+            cand_loss=packed[14:], time_s=elapsed,
+        )
+
+    @staticmethod
+    def _parse_prev_pose(prev_pose):
+        if isinstance(prev_pose, dict):
+            t, ypr = prev_pose.get("t"), prev_pose.get("ypr")
+        else:
+            t, ypr = prev_pose  # (t, ypr) pair
+        t = np.asarray(t, np.float32).reshape(3)
+        ypr = np.asarray(ypr, np.float32).reshape(3)
+        if not (np.isfinite(t).all() and np.isfinite(ypr).all()):
+            raise ValueError(f"non-finite prev_pose: t={t} ypr={ypr}")
+        return t, ypr
+
+    def _track_kw(self) -> Dict:
+        from .tracking import track_kwargs
+
+        return dict(device=self.device, **track_kwargs(self.cfg))
+
+    def _track_room(self, prep, cache, device_index: int, prev_pose) -> Dict:
+        """One warm-started single-start descent (``tracking.track_step``)
+        instead of the full pipeline; the same lock and one-copy discipline
+        as :meth:`_compute_room`.
+
+        Every tracked request runs on its own.  ``track_batch`` /
+        ``track_max_batch`` (the JAX package packs queued tracked requests
+        into one program) are accepted and change nothing: the port's
+        descent runs one stream at a time, so a drained batch would do the
+        same work request after request."""
+        from .tracking import track_step_fetched
+
+        _, img_main, rgb_used, prep_timed = prep
+        t_prev, ypr_prev = self._parse_prev_pose(prev_pose)
+        with self._compute_locks[device_index]:
+            t0 = time.time()
+            t, ypr, rot, loss = track_step_fetched(
+                img_main, cache["xyz"], rgb_used, t_prev, ypr_prev,
+                cache["lo"], cache["hi"], cache["mask"], **self._track_kw())
+            elapsed = time.time() - t0 + prep_timed
+        return dict(t=t, rot=rot, loss=loss, winner=0,
+                    cand_loss=np.asarray([loss], np.float32), ypr=ypr,
+                    time_s=elapsed, tracked=True)
+
+    def _probe_room(self, prep, cache, device_index: int) -> float:
+        """The per-room ranking probe of room='auto': stages 1 and 2, then
+        a short pruned descent at the init resolution
+        (``harness.localize._run_fused(probe=True)``); the winner loss."""
+        img_init, img_main, rgb_used, _ = prep
+        with self._compute_locks[device_index]:
+            res, _ = _run_fused(
+                img_init, img_main, cache, rgb_used,
+                self._budget_cfg(cache, device_index), self.init_dict,
+                cache["grids"], sync_plans=True, probe=True,
+            )
+            return float(res.loss)
+
+    def _select_room(self, img: np.ndarray, device_index: int):
+        """room='auto': pick the resident room whose localization loss is
+        lowest.
+
+        Default: one FULL query per resident room; the lowest finite winner
+        loss answers.  A descended loss is the discriminator because a
+        stage-1 grid minimum does not separate rooms made by one generator.
+
+        ``room_auto_probe = True``: a truncated per-room probe
+        (:meth:`_probe_room`) ranks the rooms; only rooms whose probe loss
+        is within ``room_auto_margin`` (default 3x) of the best run the full
+        query (the full loop over every room when no probe loss is
+        finite).  ``room_auto_probe = "batched"`` runs the same per-room
+        probe: the JAX package's one-program probe over the resident set
+        has no counterpart in the port yet (its descent runs one room at a
+        time), and the JAX package itself falls back to the per-room probe
+        under ``match_color`` / ``sharpen_color``.
+        """
+        with self._rooms_lock:
+            candidates = [(name, replicas[device_index])
+                          for name, replicas in self._rooms.items()]
+        scores: Dict[str, float] = {}
+        preps: Dict[str, tuple] = {}
+        # one-ahead prep: room k+1's host prep runs on a thread while room
+        # k holds the device
+        next_prep = [self._prepare(img, candidates[0][1])]
+
+        def _prep_into(cache):
+            next_prep[0] = self._prepare(img, cache)
+
+        probe_cfg = cfg_get(self.cfg, "room_auto_probe", False)
+        probe = bool(probe_cfg) and len(candidates) > 1
+        order, cut = candidates, None
+        if probe:
+            for i, (name, cache) in enumerate(candidates):
+                prep = preps[name] = next_prep[0]
+                th = None
+                if i + 1 < len(candidates):
+                    th = threading.Thread(target=_prep_into,
+                                          args=(candidates[i + 1][1],))
+                    th.start()
+                scores[name] = self._probe_room(prep, cache, device_index)
+                if th is not None:
+                    th.join()
+            finite =[s for s in scores.values() if np.isfinite(s)]
+            if finite:
+                margin = float(cfg_get(self.cfg, "room_auto_margin", 3.0))
+                cut = min(finite) * margin
+                # finalists by probe rank; the others follow as the
+                # fallback chain for a finalist whose full query degenerates
+                order = sorted(
+                    candidates,
+                    key=lambda nc: (
+                        not (np.isfinite(scores[nc[0]])
+                             and scores[nc[0]] <= cut),
+                        scores[nc[0]],
+                    ),
+                )
+
+        best = None
+        for i, (name, cache) in enumerate(order):
+            if (cut is not None and best is not None
+                    and np.isfinite(best[1]["loss"])
+                    and not (np.isfinite(scores.get(name, np.inf))
+                             and scores[name] <= cut)):
+                break  # finalists exhausted with a finite answer
+            prep = preps.get(name)
+            th = None
+            if prep is None:
+                prep = preps[name] = next_prep[0]
+                if i + 1 < len(order):
+                    th = threading.Thread(target=_prep_into,
+                                          args=(order[i + 1][1],))
+                    th.start()
+            fields = self._compute_room(prep, cache, device_index)
+            if th is not None:
+                th.join()
+            scores[name] = fields["loss"]
+            # non-finite losses (all-masked renders) never win nor block a
+            # later finite room from winning
+            if best is None or (
+                np.isfinite(fields["loss"])
+                and not (np.isfinite(best[1]["loss"])
+                         and best[1]["loss"] <= fields["loss"])
+            ):
+                best = (name, fields)
+        if not np.isfinite(best[1]["loss"]):
+            raise ValueError(
+                "room='auto' found no finite localization loss in any "
+                "resident room (all-black/empty query image?)"
+            )
+        with self._rooms_lock:
+            if best[0] in self._rooms:
+                self._rooms.move_to_end(best[0])
+        return best[0], best[1], scores
+
+    def _localize_admitted(self, img: np.ndarray, room: Optional[str],
+                           device_index: int = 0, prev_pose=None,
+                           recover_above: Optional[float] = None) -> Dict:
+        t_start = time.time()
+        room_scores = None
+        if room == "auto":
+            if prev_pose is not None:
+                raise ValueError(
+                    'room="auto" runs the full pipeline per room and '
+                    "cannot take prev_pose — name the room when tracking"
+                )
+            room, fields, room_scores = self._select_room(img, device_index)
+        else:
+            # the room resolves under the registry lock; the host prep runs
+            # outside the compute lock, overlapping other requests' compute
+            with self._rooms_lock:
+                if room is None:
+                    room = next(reversed(self._rooms))
+                if room not in self._rooms:
+                    raise KeyError(f"room {room!r} not resident "
+                                   f"(have: {list(self._rooms)})")
+                self._rooms.move_to_end(room)
+                cache = self._rooms[room][device_index]
+            prep = self._prepare(img, cache)
+            if prev_pose is not None:
+                fields = self._track_room(prep, cache, device_index,
+                                          prev_pose)
+                if recover_above is not None and not (
+                    np.isfinite(fields["loss"])
+                    and fields["loss"] <= float(recover_above)
+                ):
+                    # tracking lost: the SAME request falls back to the full
+                    # pipeline, and the client continues from its pose
+                    from .tracking import ypr_from_rot
+
+                    fields = dict(
+                        self._compute_room(prep, cache, device_index),
+                        tracked=True, recovered=True)
+                    fields["ypr"] = ypr_from_rot(fields["rot"])
+            else:
+                fields = self._compute_room(prep, cache, device_index)
+        out = dict(**fields, total_s=time.time() - t_start, room=room,
+                   device_index=device_index)
+        if room_scores is not None:
+            out["room_scores"] = room_scores
+        return out
+
+
+# -- HTTP front ------------------------------------------------------------
+
+
+_LOOPBACK_HOSTS = {"127.0.0.1", "localhost", "::1"}
+
+
+def _resolve_payload_path(path: str, data_root: Optional[str],
+                          paths_allowed: bool) -> str:
+    """Validate a filesystem path arriving in a request payload.
+
+    Trust model: on the default loopback bind every local process that can
+    reach the socket already has this process's filesystem access, so any
+    path is fine.  On a non-loopback bind the HTTP surface is
+    unauthenticated, so path payloads are refused unless ``data_root``
+    confines them (realpath + prefix check, symlink-safe).
+    """
+    if not paths_allowed:
+        raise ValueError(
+            "path-based payloads are disabled on non-loopback binds; "
+            "start the server with --data-root or send image_b64"
+        )
+    if data_root is None:
+        return path
+    import os
+
+    real = os.path.realpath(path)
+    root = os.path.realpath(data_root)
+    if not (real == root or real.startswith(root + os.sep)):
+        raise ValueError(
+            f"path {path!r} resolves outside the configured data root")
+    return real
+
+
+_PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+_JPEG_MAGIC = b"\xff\xd8"
+
+
+def _decode_image(payload: Dict, data_root: Optional[str] = None,
+                  paths_allowed: bool = True) -> np.ndarray:
+    """The request's panorama as (H, W, 3) uint8 RGB: ``image_path`` read
+    by the harness's ``imread_rgb``, or ``image_b64`` decoded by the port's
+    own PNG or JPEG decoder, chosen by the magic bytes."""
+    from .harness.imaging import imread_rgb, jpeg_decode, png_decode
+
+    if "image_path" in payload:
+        return imread_rgb(_resolve_payload_path(
+            payload["image_path"], data_root, paths_allowed))
+    if "image_b64" in payload:
+        raw = base64.b64decode(payload["image_b64"])
+        if raw.startswith(_PNG_MAGIC):
+            img = png_decode(raw)
+        elif raw.startswith(_JPEG_MAGIC):
+            img = jpeg_decode(raw)
+        else:
+            raise ValueError("image_b64 is neither a PNG nor a JPEG")
+        if img.ndim == 2:
+            img = np.repeat(img[..., None], 3, -1)
+        return img
+    raise ValueError("payload needs image_path or image_b64")
+
+
+def serve_forever(service: LocalizeService, host: str = "127.0.0.1",
+                  port: int = 8321, ready_event=None,
+                  data_root: Optional[str] = None):
+    """Blocking HTTP server over ``service`` (stdlib, JSON API).
+
+    Endpoints: ``GET /healthz``; ``POST /localize`` with
+    ``{"image_path" | "image_b64": ..., "room", "prev_pose",
+    "recover_above"}``; ``POST /room`` with ``{"pcd_path": ...}``.  Errors
+    answer 400 (bad request), 404 (unknown path), 503 with Retry-After
+    (beyond ``max_pending``) or 500.  ``ready_event`` (a
+    ``threading.Event``) gets the server as ``ready_event.server`` and is
+    set once the socket listens.  Path payloads follow
+    :func:`_resolve_payload_path`'s trust model.
+    """
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    paths_allowed = host in _LOOPBACK_HOSTS or data_root is not None
+
+    class Handler(BaseHTTPRequestHandler):
+        def _reply(self, code: int, obj: Dict, headers=None) -> None:
+            body = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            for k, v in (headers or {}).items():
+                self.send_header(k, v)
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):  # noqa: N802 (stdlib API)
+            try:
+                if self.path == "/healthz":
+                    # busy/pending are the backpressure signal
+                    self._reply(200, {
+                        "ok": True, "room": service.room,
+                        "rooms": service.rooms, "busy": service.busy,
+                        "devices": service.devices,
+                        "busy_devices": service.busy_devices,
+                        "pending": service.pending,
+                        "max_pending": service.max_pending})
+                else:
+                    self._reply(404, {"error": "unknown path"})
+            except Exception as exc:  # health probes see no tracebacks
+                self._reply(500, {"error": f"{type(exc).__name__}: {exc}"})
+
+        def do_POST(self):  # noqa: N802
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                payload = json.loads(self.rfile.read(n) or b"{}")
+                if self.path == "/localize":
+                    out = service.localize(
+                        _decode_image(payload, data_root, paths_allowed),
+                        room=payload.get("room"),
+                        prev_pose=payload.get("prev_pose"),
+                        recover_above=payload.get("recover_above"),
+                    )
+                    reply = {
+                        "t": out["t"].tolist(),
+                        "rot": out["rot"].tolist(),
+                        # a non-finite loss would make json.dumps emit bare
+                        # NaN/Infinity, which is not RFC 8259 JSON
+                        "loss": (out["loss"]
+                                 if np.isfinite(out["loss"]) else None),
+                        "winner": out["winner"],
+                        "time_s": out["time_s"],
+                        "total_s": out["total_s"],
+                        "room": out["room"],
+                        "device_index": out["device_index"],
+                    }
+                    if out.get("tracked"):
+                        reply["tracked"] = True
+                        reply["recovered"] = bool(out.get("recovered"))
+                        if "ypr" in out:
+                            reply["ypr"] = np.asarray(out["ypr"]).tolist()
+                    if "room_scores" in out:
+                        reply["room_scores"] = {
+                            k: (v if np.isfinite(v) else None)
+                            for k, v in out["room_scores"].items()}
+                    self._reply(200, reply)
+                elif self.path == "/room":
+                    service.load_room_pcd(
+                        _resolve_payload_path(payload["pcd_path"], data_root,
+                                              paths_allowed),
+                        payload.get("dataset"))
+                    self._reply(200, {"ok": True, "room": service.room})
+                else:
+                    self._reply(404, {"error": "unknown path"})
+            # served errors never kill the process, and bad requests (4xx)
+            # stay apart from a broken server (5xx: RuntimeError, which
+            # device errors and "no room loaded" raise)
+            except ServiceOverloaded as exc:
+                self._reply(503, {"error": f"ServiceOverloaded: {exc}"},
+                            headers={"Retry-After": "1"})
+            except (ValueError, KeyError, json.JSONDecodeError,
+                    FileNotFoundError) as exc:
+                self._reply(400, {"error": f"{type(exc).__name__}: {exc}"})
+            except Exception as exc:
+                self._reply(500, {"error": f"{type(exc).__name__}: {exc}"})
+
+        def log_message(self, *a):  # quiet
+            pass
+
+    server = ThreadingHTTPServer((host, port), Handler)
+    if ready_event is not None:
+        ready_event.server = server
+        ready_event.set()
+    server.serve_forever()
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        description="piccolo_tpu_torch localization service (HTTP JSON API)")
+    ap.add_argument("--config", required=True, help="ini config (harness keys)")
+    ap.add_argument("--pcd", action="append", default=[],
+                    help="room point cloud(s) to preload (repeatable)")
+    ap.add_argument("--max-rooms", type=int, default=4,
+                    help="resident-room LRU size")
+    ap.add_argument("--max-pending", type=int, default=8,
+                    help="admission bound on in-flight requests; beyond it "
+                         "requests get 503 + Retry-After")
+    ap.add_argument("--warm", metavar="HxW",
+                    help="pre-warm every preloaded room at this panorama "
+                         "shape (e.g. 512x1024): plans build and kernels "
+                         "load before the first real query")
+    ap.add_argument("--exec-cache", metavar="DIR",
+                    help="the executable cache (not ported yet: raises); "
+                         "shorthand for --override exec_cache_dir=DIR")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8321)
+    ap.add_argument("--data-root",
+                    help="confine image_path/pcd_path payloads to this "
+                         "directory (required for path payloads on a "
+                         "non-loopback --host)")
+    ap.add_argument("--override", type=str, default=None,
+                    help="config overrides, e.g. 'descent_table=float32' "
+                         "(the batch CLI's grammar)")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="serve on the card (default) or on the CPU")
+    return ap
+
+
+def main(argv=None) -> None:
+    from .config import apply_overrides
+
+    args = build_parser().parse_args(argv)
+    cfg = apply_overrides(parse_ini(args.config), args.override)
+    if args.exec_cache:
+        cfg = apply_overrides(cfg, f"exec_cache_dir={args.exec_cache}")
+    svc = LocalizeService(cfg, max_rooms=args.max_rooms,
+                          max_pending=args.max_pending, device=args.device)
+    for pcd in args.pcd:
+        svc.load_room_pcd(pcd)
+    if args.warm:
+        H, W = (int(v) for v in args.warm.lower().split("x"))
+        noise = np.random.default_rng(0).integers(0, 256, (H, W, 3),
+                                                  dtype=np.uint8)
+        for name in svc.rooms:
+            t0 = time.time()
+            svc._localize_checked(noise, room=name)
+            print(f"warmed {name} at {H}x{W} in {time.time() - t0:.1f}s",
+                  flush=True)
+    print(f"serving on {args.host}:{args.port} (room: {svc.room})",
+          flush=True)
+    serve_forever(svc, args.host, args.port, data_root=args.data_root)
+
+
+if __name__ == "__main__":
+    main()

@@ -13,8 +13,8 @@ the JAX package's on a synthetic Stanford tree from
   * ``write_synth_stanford`` writes the script's tree.
   * Without a card the CLI raises unless asked for the CPU, and the keys
     of later slices raise NotImplementedError (the staged path, descent
-    prune and multires and OmniScenes run: test_torch_staged.py and
-    test_torch_omniscenes.py).
+    prune and multires, OmniScenes and tracking run: test_torch_staged.py,
+    test_torch_omniscenes.py and test_torch_tracking.py).
 """
 
 import csv
@@ -201,8 +201,9 @@ def test_cli_without_a_card_raises(auto_run, monkeypatch, tmp_path):
 @pytest.mark.parametrize("override,match", [
     ("n_devices=2", "multi-device"),
     ("profile_dir=/nonexistent", "profiling"),
-    ("exec_cache_dir=/nonexistent", "serving"),
-    ("dataset=OmniScenes,tracking=True", "tracking"),
+    # the id the case had while the executable cache was planned with serving
+    pytest.param("exec_cache_dir=/nonexistent", "executable-cache",
+                 id="exec_cache_dir=/nonexistent-serving"),
 ])
 def test_unported_keys_raise(auto_run, override, match, tmp_path):
     cfg, _, _ = auto_run

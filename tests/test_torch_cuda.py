@@ -7,7 +7,9 @@ Run them on the card with
 masks and the same bits from run to run on any mask; slab counts are exact
 and sums agree within rtol 1e-5 (the kernels add the floats in another
 order than the plain versions).  The group-sum kernels of all three plan
-layouts are also held on hand-built edge plans, fused and unfused.  The two
+layouts are also held on hand-built edge plans, fused and unfused.  The
+device colour functions run through the histogram kernels and their plain
+versions, and one served request equals the harness's fused query.  The two
 tests of launches on a card that is not the current one need two cards.
 """
 
@@ -285,3 +287,76 @@ def test_cli_device_index_runs_on_that_card(two_cards, tmp_path):
                                  for r in rows]))
     assert winners[0].shape == (2, 3)
     np.testing.assert_allclose(winners[1], winners[0], atol=1e-4)
+
+
+def test_device_colour_kernels_match_plain(dev, monkeypatch):
+    """color_match_device and color_mod_device through the histogram
+    kernels against the same functions on the kernels' plain versions, on
+    the card: the same images bit for bit, one launch of each kernel; and
+    the host colour functions within the JAX package's tolerances."""
+    from piccolo_tpu_torch import color
+    from piccolo_tpu_torch.convert import (
+        cdf_from_numpy,
+        sharpen_state_from_numpy,
+    )
+    from piccolo_tpu_torch.kernels import block_histogram as bh
+    from piccolo_tpu_torch.kernels import histogram as mh
+
+    rng = np.random.default_rng(11)
+    img = (rng.random((128, 256, 3)) * 255).astype(np.uint8)
+    img = img.astype(np.float32) / 255.0
+    img[:6, :9] = 0.0
+    rgb = (rng.random((5000, 3)) * 255).astype(np.uint8).astype(np.float32) / 255.0
+    cdf = cdf_from_numpy(color.cloud_color_cdf(rgb), dev)
+    st = sharpen_state_from_numpy(color.cloud_sharpen_state(rgb, pad_to=6144),
+                                  dev)
+    img_d = torch.tensor(img, device=dev)
+    n_bh, n_mh = bh.block_histogram.launches, mh.masked_histogram_counts.launches
+    matched = color.color_match_device(img_d, *cdf)
+    sharp, cloud = color.color_mod_device(img_d, st)
+    torch.cuda.synchronize()
+    assert bh.block_histogram.launches == n_bh + 1
+    assert mh.masked_histogram_counts.launches == n_mh + 1
+    monkeypatch.setattr(bh, "block_histogram", bh.block_histogram_plain)
+    monkeypatch.setattr(mh, "masked_histogram_counts",
+                        mh.masked_histogram_counts_plain)
+    assert torch.equal(matched, color.color_match_device(img_d, *cdf))
+    sharp_p, cloud_p = color.color_mod_device(img_d, st)
+    assert torch.equal(sharp, sharp_p) and torch.equal(cloud, cloud_p)
+    host = color.color_match(img.copy(), rgb)
+    assert np.abs(matched.cpu().numpy() - host).max() < 1e-5
+    h_img, h_rgb = color.color_mod(img.copy(), rgb, 256)
+    assert np.abs(sharp.cpu().numpy() - h_img).max() <= 1.001 / 255.0
+    assert np.abs(cloud[:5000].cpu().numpy() - h_rgb).max() <= 1.001 / 255.0
+    assert torch.all(cloud[5000:] == 0.0)
+
+
+def test_served_request_equals_run_fused(dev):
+    """One request through LocalizeService on the card equals the harness's
+    _run_fused on the same room and image bit for bit, through a forced f32
+    plan (the slab kernel) and the block-histogram kernel."""
+    from piccolo_tpu_torch.harness.localize import _run_fused
+    from piccolo_tpu_torch.serve import LocalizeService
+
+    rng = np.random.default_rng(5)
+    xyz, rgb = make_room(rng, n_per_wall=1500, texture="checker")
+    img = render_at(xyz, rgb, np.float32([0.4, -0.2, 0.15]),
+                    np.float32([0.9, 0, 0]), (128, 256), device="cpu").numpy()
+    img = (img * 255).astype(np.uint8)
+    svc = LocalizeService(
+        device=dev, xy_only=True, num_trans=16, yaw_only=True, num_yaw=4,
+        z_prior=None, num_split_h=4, num_split_w=4, num_intermediate=8,
+        num_input=4, num_iter=60, lr=0.1, patience=5, factor=0.8,
+        slab_init=True, slab_background_build=False)
+    svc.load_room(xyz, rgb, name="box")
+    n_slab, n_bh = slab.slab_group_sums_f32.launches, block_histogram.launches
+    out = svc.localize(img)
+    assert slab.slab_group_sums_f32.launches > n_slab
+    assert block_histogram.launches > n_bh
+    cache = svc._rooms["box"][0]
+    img_init, img_main, rgb_used, _ = svc._prepare(img, cache)
+    res, _ = _run_fused(img_init, img_main, cache, rgb_used, svc.cfg,
+                        svc.init_dict, cache["grids"], sync_plans=True)
+    np.testing.assert_array_equal(out["t"], res.t.cpu().numpy())
+    assert out["loss"] == float(res.loss)
+    assert np.linalg.norm(out["t"] - np.float32([0.4, -0.2, 0.15])) < 0.2

@@ -13,6 +13,8 @@ import torch
 
 import piccolo_tpu_torch
 from piccolo_tpu_torch import build_grid_plan, build_hist_plan, localize_query
+from piccolo_tpu_torch.serve import LocalizeService
+from piccolo_tpu_torch.tracking import track_step, track_step_prepped_fetched
 
 PKG = pathlib.Path(piccolo_tpu_torch.__file__).resolve().parent
 
@@ -33,7 +35,7 @@ def test_import_loads_no_jax_and_no_reference_package():
     out = subprocess.run([sys.executable, "-c", _PROBE], check=True,
                          capture_output=True, text=True,
                          cwd=PKG.parent).stdout.split("\n")
-    assert int(out[0]) >= 36  # every submodule was imported
+    assert int(out[0]) >= 39  # every submodule, tracking and serve too
     assert out[1] == "[]"
 
 
@@ -57,7 +59,8 @@ def test_sources_never_import_cv2_or_pil():
 
 
 @pytest.mark.parametrize("entry", ["localize_query", "build_grid_plan",
-                                   "build_hist_plan"])
+                                   "build_hist_plan", "LocalizeService",
+                                   "track_step", "track_step_prepped_fetched"])
 def test_entry_points_raise_without_a_card(monkeypatch, entry):
     """Without CUDA, an entry point called without device= raises instead
     of running the plain path on the CPU."""
@@ -69,6 +72,13 @@ def test_entry_points_raise_without_a_card(monkeypatch, entry):
             z3, z3, z3, z3, np.ones(4, bool), np.zeros(3), np.ones(3)),
         "build_grid_plan": lambda: build_grid_plan(z3, z3, None, z3, z3, 8, 16),
         "build_hist_plan": lambda: build_hist_plan(z3, z3, z3, z3, 8, 16),
+        "LocalizeService": lambda: LocalizeService(num_trans=4),
+        "track_step": lambda: track_step(
+            np.zeros((8, 16, 3), np.float32), z3, z3, z3[0], z3[0], z3[0],
+            z3[0] + 1),
+        "track_step_prepped_fetched": lambda: track_step_prepped_fetched(
+            np.zeros((8, 16, 3), np.uint8), z3, z3, z3[0], z3[0], z3[0],
+            z3[0] + 1),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
