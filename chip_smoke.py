@@ -98,8 +98,36 @@ Phases (any failure exits non-zero; each prints its seconds):
      of phase 15's fused run;
      median time (s) of the tracked frames beside the fused median; then
      one tracked frame under torch.profiler;
-then one JSON line of kernel measurements (launches from the run that
-drives each kernel) and, last, the device line.
+ 20. the descent's CUDA graph against the eager loop on phase 3's room
+     (after phase 7): from one query's starts, the default 6 x 100
+     descent, prune (30, 2), multires (70, 2) and trajectory bit-equal
+     graphed and eager (_eager=True); then 10 queries each way in turns,
+     the same winners bit for bit, s/query p50 and p90 of each;
+ 21. configs/stanford_parallel.ini (pitch and roll in the starts) through
+     the CLI on phase 8's tree (after phase 10): route, accuracy (at least
+     0.75: camera 0002 is missed by both packages, ROADMAP Queue 3), t_err
+     and s/query;
+ 22. in phase 17, with sharpen_color = False: two services holding both
+     offices, one with room_auto_probe = "batched" (the one-program probe)
+     and track_batch = True, one with the per-room probe; both queries
+     with room = "auto" on the two in turns, picks and score order held
+     to ROOM_AUTO_RECORD, total_s p50 of each; the probes alone (the
+     batched one, its loss tables, the per-room one), each profiled;
+     4 concurrent tracked requests in each room until a drained batch
+     (K > 1) answers within BATCH_BOUND of single requests; the graph keys
+     that service used, their bytes against the graphs' cap, and no
+     recapture;
+ 23. on the OmniScenes room (last): a tracked frame's descent graphed
+     against eager, bit-equal; track_steps_batched at K = 1, 2, 4 against
+     each stream's own track_step, and each batch's wall and device ms
+     against K single steps; each stream of the K = 4 batch bit-equal to
+     a K = 4 batch of four copies of itself.
+Every descent above runs its captured graph (solver.py), and every
+profiled query reports its kernel and graph launches.  Then one line of
+the profiles' summaries, one line of every graph captured (its shapes,
+capture s, pool and static bytes, replays), one JSON line of kernel
+measurements (launches from the run that drives each kernel) and, last,
+the device line.
 """
 
 from __future__ import annotations
@@ -122,6 +150,8 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+PROFILES = []  # one summary per profile_query call
+GRAPHS = {}  # every descent graph captured in this run, by capture number
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 SIZE = (6.0, 4.0, 3.0)
 CLI_QUERIES = 4
@@ -130,6 +160,20 @@ CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
                       "stanford.ini")
 OMNI_CONFIG = os.path.join(os.path.dirname(CONFIG), "omniscenes.ini")
 SERVED_REQUESTS = 10
+PARALLEL_CONFIG = os.path.join(os.path.dirname(CONFIG), "stanford_parallel.ini")
+PARALLEL_MIN_ACCURACY = 0.75
+# a batched stream against its own track_step (m, rad): the batch's backward
+# sums a stream's gradient over the cloud in another order, and the descent
+# carries that ulp difference (5.3e-5 m over 30 steps on the CPU tests)
+BATCH_BOUND = 1e-3
+# a pruned survivor against its unpruned descent (m, rad): its second phase
+# runs a batch of 2, whose reductions add in another order, and 70 steps at
+# lr 0.1 carry that to 8.9e-3 on the library query (PERF.md, §6); the
+# bound asks for the same basin, far inside the 0.2 m criterion
+PRUNE_BOUND = 2e-2
+# ~20 ms of sleep kernel: a tracked batch's 30 replays and table packing
+# are enqueued behind it
+BATCH_LEAD_CYCLES = 40_000_000
 # room = "auto" (phase 17): a two-room ray-cast Stanford tree whose office_1
 # and first panorama are the CLI tree's, and, per room_auto_probe mode and
 # query, the room picked and the order of the room scores (a full query's
@@ -139,6 +183,18 @@ SERVED_REQUESTS = 10
 ROOM_AUTO_TREE = dict(rooms=2, queries=1, points=60000, height=512, seed=7,
                       oracle="raycast")
 ROOM_AUTO_RECORD = {
+    # room_auto_probe = "batched", sharpen_color = False: the one-program
+    # probe (scripts/room_auto_record.py --modes batched --override
+    # sharpen_color=False)
+    "batched": {"0000synth": ("office_1.txt",
+                              ["office_1.txt", "office_2.txt"]),
+                "0100synth": ("office_2.txt",
+                              ["office_2.txt", "office_1.txt"])},
+    # room_auto_probe = True, sharpen_color = False: the per-room probe on
+    # the same service config (--modes True --override sharpen_color=False)
+    "True, sharpen_color=False": {
+        "0000synth": ("office_1.txt", ["office_1.txt", "office_2.txt"]),
+        "0100synth": ("office_2.txt", ["office_2.txt", "office_1.txt"])},
     "False": {"0000synth": ("office_1.txt", ["office_1.txt", "office_2.txt"]),
               "0100synth": ("office_2.txt", ["office_2.txt", "office_1.txt"])},
     "True": {"0000synth": ("office_1.txt", ["office_1.txt", "office_2.txt"]),
@@ -153,16 +209,16 @@ def log(*a):
 HOST_LEAD_CYCLES = 2_000_000  # ~1 ms of sleep kernel on an H100
 
 
-def cuda_ms(fn, reps=20):
+def cuda_ms(fn, reps=20, lead=HOST_LEAD_CYCLES):
     """Median device milliseconds of one call: CUDA events around each
-    call, with a sleep kernel queued first so that the host enqueues the
-    call while the card is still busy, and the events time the card's work
-    and not the host's Python and launch overhead."""
+    call, with a sleep kernel of ``lead`` cycles queued first so that the
+    host enqueues the call while the card is still busy, and the events
+    time the card's work and not the host's Python and launch overhead."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
-        torch.cuda._sleep(HOST_LEAD_CYCLES)
+        torch.cuda._sleep(lead)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -813,15 +869,17 @@ def cpu_op_stages(raw):
     encloses it on its thread, else the backward when an ``autograd::engine``
     frame encloses it, else None.  This is the walk up ``cpu_parent`` that
     torch.profiler's event tree allows, from one sorted pass a thread: that
-    tree takes tens of seconds to build for a query's ~60k device ops."""
+    tree takes tens of seconds to build for a query's ~60k device ops.
+    Also the stage around each runtime call (a kernel or a graph launch), by
+    the call's own correlation id, which its device work shares: a CUDA
+    graph's kernels are linked to their cudaGraphLaunch and to no op."""
     from torch.autograd import DeviceType
 
     threads = {}
     for e in raw:
-        # torch ops; runtime calls carry the id of the op that made them
-        if e.device_type() == DeviceType.CPU and e.linked_correlation_id() == 0:
+        if e.device_type() == DeviceType.CPU:
             threads.setdefault(e.start_thread_id(), []).append(e)
-    stage_of = {}
+    stage_of, stage_of_call = {}, {}
     for evs in threads.values():
         evs.sort(key=lambda e: (e.start_ns(), -e.end_ns()))
         stack = []  # (end_ns, stage) of the ops that enclose the next one
@@ -830,6 +888,10 @@ def cpu_op_stages(raw):
                 stack.pop()
             up = stack[-1][1] if stack else None
             name = e.name()
+            # runtime calls carry the id of the op that made them, if any
+            if e.linked_correlation_id() != 0 or name.startswith("cu"):
+                stage_of_call[e.correlation_id()] = up
+                continue
             if name.startswith("localize."):
                 stage = name
             elif up is not None and up.startswith("localize."):
@@ -840,7 +902,7 @@ def cpu_op_stages(raw):
                 stage = up
             stage_of[e.correlation_id()] = stage
             stack.append((e.end_ns(), stage))
-    return stage_of
+    return stage_of, stage_of_call
 
 
 def profile_query(label, run, median_s):
@@ -859,6 +921,9 @@ def profile_query(label, run, median_s):
 
     own = {"slab_sums_kernel": "localize.stage1_loss_table",
            "block_histogram_kernel": "localize.stage2_hist_trim"}
+    launch_calls = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                    "cuLaunchKernel", "cuLaunchKernelEx")
+    graph_calls = ("cudaGraphLaunch", "cuGraphLaunch")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
@@ -870,35 +935,73 @@ def profile_query(label, run, median_s):
         d[key] = d.get(key, 0.0) + us
 
     raw = prof.profiler.kineto_results.events()
-    stage_of = cpu_op_stages(raw)
+    stage_of, stage_of_call = cpu_op_stages(raw)
     stages, by_kernel, busy_us, n_ops = {}, {}, 0.0, 0
+    n_launch = n_graph = 0
+    graph_host_us = 0.0
+    windows = {}  # stage -> (first start, last end) of its device work, ns
+    first, last = math.inf, 0
     for e in raw:
         name = e.name()
+        if e.device_type() == DeviceType.CPU:
+            n_launch += name in launch_calls
+            n_graph += name in graph_calls
+            if name in graph_calls:
+                graph_host_us += e.duration_ns() / 1e3
         # the spans' own device-side ranges are not device work
         if e.device_type() != DeviceType.CUDA or name.startswith("localize."):
             continue
         us = e.duration_ns() / 1e3
         busy_us += us
         n_ops += 1
+        first = min(first, e.start_ns())
+        last = max(last, e.start_ns() + e.duration_ns())
         add(by_kernel, name, us)
         stage = next((s_ for key, s_ in own.items() if key in name), None)
         if stage is None:
             stage = stage_of.get(e.linked_correlation_id())
+        if stage is None:
+            stage = stage_of_call.get(e.correlation_id())
         if stage:
             add(stages, stage, us)
+            lo_, hi_ = windows.get(stage, (math.inf, 0))
+            windows[stage] = (min(lo_, e.start_ns()),
+                              max(hi_, e.start_ns() + e.duration_ns()))
     if busy_us > sum(stages.values()):
         stages["outside the stage spans"] = busy_us - sum(stages.values())
     log(f"{label} profiled query: wall {wall_us / 1e3:.1f} ms under the "
-        f"profiler, {n_ops} device ops")
+        f"profiler, {n_ops} device ops; launches: {n_launch} kernels and "
+        f"{n_graph} graphs ({graph_host_us / 1e3:.2f} ms of host time in the "
+        f"graph launches)")
+    PROFILES.append(dict(label=label, device_ops=n_ops,
+                         kernel_launches=n_launch, graph_launches=n_graph,
+                         graph_launch_host_ms=graph_host_us / 1e3,
+                         busy_ms=busy_us / 1e3, profiled_wall_ms=wall_us / 1e3,
+                         median_s=median_s,
+                         device_window_ms=(last - first) / 1e6
+                         if n_ops else None,
+                         idle_share=(1 - busy_us / (median_s * 1e6))
+                         if busy_us else None))
     if busy_us == 0:
         log(f"{label} profile: torch.profiler recorded no device time (not "
             "measured)")
         return {}
-    log(f"{label} profile: device busy {busy_us / 1e3:.2f} ms, idle share "
+    log(f"{label} profile: device busy {busy_us / 1e3:.2f} ms in a window of "
+        f"{(last - first) / 1e6:.2f} ms from the first kernel's start to the "
+        f"last's end; idle share "
         f"{1 - busy_us / wall_us:.3f} of the profiled query, "
         f"{1 - busy_us / (median_s * 1e6):.3f} of the unprofiled median")
     for name, us in sorted(stages.items(), key=lambda kv: -kv[1]):
-        log(f"{label} profile stage {name}: device {us / 1e3:.2f} ms")
+        w = windows.get(name)
+        log(f"{label} profile stage {name}: device {us / 1e3:.2f} ms"
+            + ("" if w is None else f" in a window of "
+               f"{(w[1] - w[0]) / 1e6:.2f} ms from its first kernel's start "
+               f"to its last's end"))
+    w = windows.get("localize.stage3_descent")
+    if w is not None:
+        PROFILES[-1]["descent_busy_ms"] = stages[
+            "localize.stage3_descent"] / 1e3
+        PROFILES[-1]["descent_window_ms"] = (w[1] - w[0]) / 1e6
     for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
         log(f"{label} profile kernel {us / 1e3:8.2f} ms  {name[:100]}")
     return {k: us / 1e3 for k, us in stages.items()}
@@ -1944,14 +2047,482 @@ def phase_serving(dev, tmp, cli_tree):
             f"{os.path.basename(p).split('_')[1]} picked {picked}, ranked "
             f"{order} as recorded (scores {out['room_scores']}, total_s {out['total_s']:.4f})")
     del auto
+    session = _serving_session(cfg, pcd, pcd2, panos, auto_panos, dev,
+                               check_auto)
     torch.cuda.empty_cache()
-    return dict(p50=p50, p90=p90, launches=launches, totals=totals)
+    return dict(p50=p50, p90=p90, launches=launches, totals=totals,
+                session=session)
+
+
+def _graphs_touched(before, after):
+    """The capture numbers of the graphs captured or replayed between two
+    solver.graph_stats() snapshots."""
+    old = {g["capture"]: g["replays"] for g in before["graphs"]}
+    return {g["capture"] for g in after["graphs"]
+            if g["replays"] > old.get(g["capture"], -1)}
+
+
+def _serving_session(cfg, pcd, pcd2, panos, auto_panos, dev, check_auto):
+    """Phase 22, with sharpen_color = False, on two services that each hold
+    both offices: one with room_auto_probe = "batched" and track_batch =
+    True (track_max_batch 4), one with the per-room probe
+    (room_auto_probe = True).  (a) Both queries with room = "auto", the two
+    services in turns, 6 rounds (round 0 captures; p50 of total_s over
+    rounds 1-5 of each); the batched service must pick and rank as
+    ROOM_AUTO_RECORD["batched"] without a per-room probe, the per-room one
+    as ROOM_AUTO_RECORD["True, sharpen_color=False"] with two.  (b) The
+    probes alone on one query, median of 5 each: the batched probe, its
+    loss tables, and the per-room probe of both rooms; one profile of each
+    probe.  (c) track_batch on the batched
+    service in each room (_serving_track_batch).  Every graph key the
+    batched service used in (a)-(c) is counted, with its pool and static
+    bytes; the session must recapture nothing."""
+    from piccolo_tpu_torch import solver
+    from piccolo_tpu_torch.config import apply_overrides
+    from piccolo_tpu_torch.data import read_stanford
+    from piccolo_tpu_torch.harness.imaging import imread_rgb
+    from piccolo_tpu_torch.serve import LocalizeService
+
+    svcs = {}
+    for mode, extra in (("batched", ",track_batch=True,track_max_batch=4"),
+                        ("True", "")):
+        svcs[mode] = LocalizeService(apply_overrides(
+            cfg, f"room_auto_probe={mode},sharpen_color=False{extra}"),
+            max_rooms=2, device=dev)
+        for name in (pcd, pcd2):
+            x, c = read_stanford(name, 1)
+            svcs[mode].load_room(x.astype(np.float32), c.astype(np.float32),
+                                 name=name, warm_shape=(512, 1024))
+    svc = svcs["batched"]
+    touched, lock = set(), threading.Lock()
+    real_localize = svc.localize
+
+    def localize(*a, **kw):
+        before = solver.graph_stats()
+        out = real_localize(*a, **kw)
+        with lock:
+            touched.update(_graphs_touched(before, solver.graph_stats()))
+        return out
+
+    svc.localize = localize
+    counts0 = solver.graph_stats()
+    batched, per_room = [], {m: [] for m in svcs}
+    real_b = svc._probe_state_batched
+    svc._probe_state_batched = lambda i: batched.append(i) or real_b(i)
+    for m, sv in svcs.items():
+        real_p = sv._probe_room
+        sv._probe_room = (lambda real_p, m: lambda *a: per_room[m].append(
+            a[1]) or real_p(*a))(real_p, m)
+    records = {"batched": "batched", "True": "True, sharpen_color=False"}
+    totals = {m: [] for m in svcs}
+    queries = [(p, imread_rgb(p)) for p in (auto_panos[1], panos[0])]
+    for rnd in range(6):
+        for qi, (p, img) in enumerate(queries):
+            order = list(svcs) if (rnd + qi) % 2 == 0 else list(svcs)[::-1]
+            for m in order:
+                out = svcs[m].localize(img, room="auto")
+                picked, ranked = check_auto(records[m], p, out)
+                if rnd:
+                    totals[m].append(out["total_s"])
+                if rnd in (0, 5):
+                    log(f"serving: room=auto, room_auto_probe={m}, "
+                        f"sharpen_color=False, round {rnd}: "
+                        f"{os.path.basename(p).split('_')[1]} picked "
+                        f"{picked}, ranked {ranked} as recorded (scores "
+                        f"{out['room_scores']}, total_s "
+                        f"{out['total_s']:.4f})")
+    if per_room["batched"] or len(batched) != 12:
+        raise AssertionError(f"batched probe: {len(batched)} batched probes, "
+                             f"{len(per_room['batched'])} per-room probes "
+                             "for 12 requests")
+    if len(per_room["True"]) != 24:
+        raise AssertionError(f"per-room probe: {len(per_room['True'])} "
+                             "probes for 12 requests over 2 rooms")
+    p50 = {m: float(np.median(v)) for m, v in totals.items()}
+    log(f"serving: room=auto, sharpen_color=False, the same 2 queries in "
+        f"turns, 5 warm rounds: total_s p50 one-program probe "
+        f"{p50['batched']:.4f} s, per-room probe {p50['True']:.4f} s "
+        f"(x{p50['True'] / p50['batched']:.2f}); all batched "
+        f"{[round(v, 4) for v in totals['batched']]}, per-room "
+        f"{[round(v, 4) for v in totals['True']]}")
+    # the probes alone on the second query: the batched probe, its loss
+    # tables (score_pose_grid per room, the part before its descent), and
+    # the per-room probe of both rooms (prep done first), median of 5 each
+    from piccolo_tpu_torch.init.refine import score_pose_grid
+
+    st = real_b(0)
+    img_init = svc._prepare(queries[1][1], svc._rooms[pcd][0])[0]
+    kw = svc._probe_kwargs()
+    img_d = torch.as_tensor(img_init, dtype=torch.float32, device=dev)
+    per = svcs["True"]
+    preps = [(per._prepare(queries[1][1], per._rooms[n][0]), per._rooms[n][0])
+             for n in (pcd, pcd2)]
+
+    def tables():
+        for r in range(len(st.names)):
+            score_pose_grid(img_d, st.xyz[r], st.rgb[r], st.trans[r], st.rot,
+                            st.point_mask[r], valid=st.trans_valid[r],
+                            wrap=kw["wrap"])
+
+    def per_room_probes():
+        for prep, cache in preps:
+            per._probe_room(prep, cache, 0)
+
+    runs = {"batched probe": lambda: st.losses(img_init, **kw),
+            "its loss tables": tables, "per-room probe": per_room_probes}
+    med = {}
+    for name, fn in runs.items():
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        med[name] = float(np.median(walls))
+    probe_s = med["batched probe"]
+    log(f"serving: the probes alone over {len(st.names)} rooms, median of 5: "
+        f"batched {probe_s:.4f} s ({tuple(st.trans.shape)} probe grids x "
+        f"{tuple(st.rot.shape)} rotations, {kw['num_starts']} starts x "
+        f"{kw['num_iter']} iterations a room), of it the loss tables "
+        f"{med['its loss tables']:.4f} s; per-room probes of both rooms "
+        f"{med['per-room probe']:.4f} s")
+    for name in ("batched probe", "per-room probe"):
+        profile_query(f"{name}, 2 rooms", runs[name], med[name])
+    del svcs["True"], per, preps
+    tracks = {os.path.basename(room): _serving_track_batch(svc, room, p)
+              for room, p in ((pcd, panos[0]), (pcd2, auto_panos[1]))}
+    counts1 = solver.graph_stats()
+    keys = [g for g in counts1["graphs"] if g["capture"] in touched]
+    if len(keys) != len(touched):
+        raise AssertionError(f"{len(touched) - len(keys)} graphs the "
+                             "session used were evicted")
+    moved = {k: counts1[k] - counts0[k]
+             for k in ("captures", "evictions", "recaptures")}
+    pool = sum(g["pool_bytes"] for g in keys)
+    static = sum(g["static_bytes"] for g in keys)
+    cap = solver.GRAPH_MEM_FRACTION * torch.cuda.get_device_properties(
+        dev).total_memory
+    log(f"serving: the two-room session with the batched probe and "
+        f"track_batch used {len(keys)} graph keys (starts, cloud rows, "
+        f"table rows: {[(g['starts'], g['cloud'], g['table']) for g in keys]}"
+        f"), pools {pool / 2**20:.1f} MiB and static buffers "
+        f"{static / 2**20:.1f} MiB, {(pool + static) / cap:.3f} of the "
+        f"graphs' cap ({cap / 2**30:.2f} GiB); in the phase {moved}")
+    if moved["recaptures"]:
+        raise AssertionError(f"the serving session recaptured: {moved}")
+    del svc, st
+    return dict(probe_s=med, total_s_p50=p50, track_batch=tracks,
+                keys=len(keys), graph_bytes=pool + static)
+
+
+def _serving_track_batch(svc, room, pano):
+    """track_batch on ``svc`` (sharpen_color = False, so the requests share
+    the room's colours): four tracked requests in ``room`` from four warm
+    starts near ``pano``'s answer, first one at a time (no batch), then
+    released together from four threads, up to 5 rounds until a drained
+    batch (``"batched"`` > 1) is seen.  Each batched answer must lie
+    within BATCH_BOUND of its own single request, each unbatched one
+    equal it."""
+    from piccolo_tpu_torch.harness.imaging import imread_rgb
+    from piccolo_tpu_torch.tracking import ypr_from_rot
+
+    img0 = imread_rgb(pano)
+    first = svc.localize(img0, room=room)
+    t = np.float32(first["t"])
+    y = ypr_from_rot(np.asarray(first["rot"]))
+    steps = np.float32([[0.03, -0.02, 0.0], [-0.02, 0.03, 0.01],
+                        [0.02, 0.02, -0.01], [-0.03, -0.01, 0.0]])
+    prevs = [{"t": (t + d).tolist(), "ypr": y.tolist()} for d in steps]
+    singles = [svc.localize(img0, room=room, prev_pose=p_) for p_ in prevs]
+    if any("batched" in o for o in singles):
+        raise AssertionError("a serial tracked request was batched")
+    rounds = []
+    for _ in range(5):
+        outs = [None] * 4
+        gate = threading.Barrier(4)
+
+        def go(i):
+            gate.wait()
+            outs[i] = svc.localize(img0, room=room, prev_pose=prevs[i])
+
+        threads = [threading.Thread(target=go, args=(i,)) for i in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(300)
+        if any(o is None for o in outs):
+            raise AssertionError("a concurrent tracked request failed")
+        for o, one in zip(outs, singles):
+            d = max(float(np.abs(np.float32(o["t"]) - one["t"]).max()),
+                    float(np.abs(np.float32(o["ypr"]) - one["ypr"]).max()))
+            if not (d <= BATCH_BOUND if "batched" in o else d == 0.0):
+                raise AssertionError(f"tracked answer {d} from its single "
+                                     f"request (batched {o.get('batched')})")
+        rounds.append(([o.get("batched", 1) for o in outs],
+                       [round(o["total_s"], 4) for o in outs]))
+        if max(rounds[-1][0]) > 1:
+            break
+    log(f"serving: track_batch in {os.path.basename(room)}, 4 concurrent "
+        f"tracked requests a round: (batch sizes, total_s) per round "
+        f"{rounds}; single requests' total_s "
+        f"{[round(o['total_s'], 4) for o in singles]}")
+    if max(rounds[-1][0]) <= 1:
+        raise AssertionError("no drained batch with K > 1 in 5 rounds")
+    return rounds
+
+
+def note_graphs():
+    """Merge the descent graphs cached now into GRAPHS (the LRU may evict a
+    graph before the end of the run); every pool must have been counted."""
+    from piccolo_tpu_torch import solver
+
+    for g in solver.graph_stats()["graphs"]:
+        if not g["pool_bytes"] > 0:
+            raise AssertionError(f"graph {g} reports no pool")
+        GRAPHS[g["capture"]] = g
+
+
+def _percentiles(xs):
+    return tuple(float(np.percentile(xs, q)) for q in (50, 90))
+
+
+def _same_descent(got, want):
+    """Whether two descend_starts results are bit-equal: final poses,
+    losses, learning rates and any trajectory."""
+    pairs = list(zip(got[0].leaves(), want[0].leaves()))
+    pairs += [(got[1], want[1]), (got[2], want[2])]
+    if got[3] is not None:
+        pairs += list(zip(got[3].leaves(), want[3].leaves()))
+    return all(torch.equal(a, b) for a, b in pairs)
+
+
+def phase_graph_vs_eager(room, dev):
+    """The descent's captured graph against the eager loop on the library
+    room.  (a) From one query's six starts, descend_starts graphed and
+    eager (_eager=True) for the default 6 x 100 descent, prune (30, 2),
+    multires (70, 2) and trajectory: final poses, losses and learning rates
+    (and every trajectory step) bit-equal.  (b) 10 queries each way, in
+    turns, through localize_query: the same winners and candidate losses
+    bit for bit, and s/query p50 and p90 of each."""
+    from piccolo_tpu_torch.solver import descend_starts
+
+    r = room
+    _, _, img_init, img_main = _query_images(300, r["xyz"], r["rgb"], dev)
+    res = _query(r, img_init, img_main, dev)
+    lo, hi = (torch.as_tensor(b, device=dev) for b in (r["lo"], r["hi"]))
+    modes = {"default 6 x 100": {}, "prune (30, 2)": dict(prune=(30, 2)),
+             "multires (70, 2)": dict(multires=(70, 2)),
+             "trajectory": dict(trajectory=True)}
+    def run(n, eager=False, **kw):
+        return descend_starts(
+            img_main, r["xyz_d"], r["rgb_d"], res.start_t, res.start_ypr, lo,
+            hi, r["mask_d"], n, 0.1, 5, 0.8, "float32", False,
+            table_arg="auto", _eager=eager, **kw)
+
+    graphed = {}
+    for name, kw in modes.items():
+        outs = [run(100, eager, **kw) for eager in (False, True)]
+        if not _same_descent(*outs):
+            raise AssertionError(f"graph and eager descents differ: {name}")
+        graphed[name] = outs[0]
+        log(f"graph vs eager, library room, {name}: final poses, losses and "
+            f"lrs bit-equal" + (", every trajectory step too"
+                                if kw.get("trajectory") else ""))
+    # prune's survivors against the same starts' unpruned descent: the
+    # second phase's batch of 2 may add its reductions in another order
+    head = run(30)
+    keep = torch.argsort(head[1], stable=True)[:2]
+    pruned, full = graphed["prune (30, 2)"][0], graphed["default 6 x 100"][0]
+    d = max(float((pruned.t[keep] - full.t[keep]).abs().max()),
+            float((pruned.ypr()[keep] - full.ypr()[keep]).abs().max()))
+    log(f"prune (30, 2) on the card: survivors {keep.tolist()} within {d:.3g} "
+        f"(m or rad) of their unpruned descent (bound {PRUNE_BOUND})")
+    if not d <= PRUNE_BOUND:
+        raise AssertionError(f"pruned survivors {d} from their unpruned "
+                             "descent")
+
+    def one(seed, eager):
+        _, _, ii, im = _query_images(seed, r["xyz"], r["rgb"], dev)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        q = _query(r, ii, im, dev, _eager=eager)
+        q.t.cpu()
+        return time.time() - t0, q
+
+    one(399, True)
+    secs = {False: [], True: []}
+    for i in range(10):
+        pair = {}
+        for eager in ((False, True) if i % 2 == 0 else (True, False)):
+            sec, pair[eager] = one(400 + i, eager)
+            secs[eager].append(sec)
+        a, b = pair[False], pair[True]
+        if not (torch.equal(a.cand_t, b.cand_t)
+                and torch.equal(a.cand_loss, b.cand_loss)
+                and int(a.winner) == int(b.winner)):
+            raise AssertionError(f"query {400 + i}: graphed and eager "
+                                 "queries differ")
+    (g50, g90), (e50, e90) = _percentiles(secs[False]), _percentiles(secs[True])
+    log(f"graph vs eager, library queries: 10 each, in turns, same winners "
+        f"and candidate losses bit for bit; graphed s/query p50 {g50:.4f} "
+        f"p90 {g90:.4f}, eager p50 {e50:.4f} p90 {e90:.4f} (x{e50 / g50:.2f})"
+        f"; all graphed {[round(v, 4) for v in secs[False]]}, eager "
+        f"{[round(v, 4) for v in secs[True]]}")
+    return dict(graphed=(g50, g90), eager=(e50, e90))
+
+
+def phase_cli_parallel(cli_tree, dev):
+    """The shipped configs/stanford_parallel.ini (4 x 4 x 4 rotations, pitch
+    and roll in every start, sample_rate 6) through the CLI and its ladder
+    on the CLI's tree: route, accuracy, t_err and s/query."""
+    from piccolo_tpu_torch.main import main as cli_main
+
+    log_dir = os.path.join(os.path.dirname(cli_tree), "log_parallel")
+    buf = io.StringIO()
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(buf):
+            acc = cli_main(["--config", PARALLEL_CONFIG, "--log", log_dir,
+                            "--no-tensorboard", "--device", dev.type,
+                            "--override", f"data_root={cli_tree}"])
+    except Exception:
+        print(buf.getvalue()[-6000:], flush=True)
+        raise
+    wall = time.time() - t0
+    routes = [ln.split(":", 1)[1].strip() for ln in buf.getvalue().splitlines()
+              if ln.startswith("route :")]
+    rows = _csv_rows(log_dir)
+    t_err = [float(r_[7]) for r_ in rows]
+    r_err = [float(r_[8]) for r_ in rows]
+    q_s = float(np.median([float(r_[9]) for r_ in rows]))
+    log(f"cli stanford_parallel.ini: routes {routes}; accuracy {acc}; t_err "
+        f"(m) {[round(v, 4) for v in t_err]}; r_err (deg) "
+        f"{[round(v, 3) for v in r_err]}; median time (s) {q_s:.4f}; wall "
+        f"{wall:.2f} s")
+    if len(rows) != CLI_QUERIES or not np.isfinite(t_err).all():
+        raise AssertionError(f"stanford_parallel.ini: {len(rows)} rows, "
+                             f"t_err {t_err}")
+    if not acc >= PARALLEL_MIN_ACCURACY:
+        raise AssertionError(f"stanford_parallel.ini: accuracy {acc}")
+    return dict(acc=acc, s=q_s, routes=routes)
+
+
+def phase_omni_batch(o, omni, dev):
+    """On the OmniScenes room, with each frame's colour prep (match_color)
+    done first: one tracked frame's descent graphed against eager
+    (bit-equal); then track_steps_batched over K = 1, 2 and 4 of the video's
+    frames from 3 cm off their poses, each stream against its own
+    track_step (K = 1 bit-equal; K > 1 within BATCH_BOUND, the batch's
+    backward adds a stream's terms in another order), and each batch's wall
+    and device ms against K single steps."""
+    from piccolo_tpu_torch import tracking as T
+    from piccolo_tpu_torch.color import cloud_color_cdf
+    from piccolo_tpu_torch.convert import cdf_from_numpy
+    from piccolo_tpu_torch.data import obtain_gt_omniscenes, omniscenes_pano_glob
+    from piccolo_tpu_torch.harness.imaging import imread_rgb
+    from piccolo_tpu_torch.harness.localize import resize_ablate_omniscenes
+    from piccolo_tpu_torch.solver import descend
+
+    room, cfg = o["room"], o["cfg"]
+    kw = T.track_kwargs(cfg)
+    cdf = cdf_from_numpy(cloud_color_cdf(room["rgb_np"]), dev)
+    imgs, ts, ys = [], [], []
+    for p in sorted(glob.glob(omniscenes_pano_glob(omni["tree"]))):
+        u8 = resize_ablate_omniscenes(cfg, imread_rgb(p))
+        img, _ = T._prep_frame(u8, cdf, None, room["rgb"], dev)
+        imgs.append(img)
+        gt_t, gt_r = obtain_gt_omniscenes(p)
+        ts.append(np.asarray(gt_t, np.float32).reshape(3)
+                  + np.float32([0.03, -0.02, 0.0]))
+        ys.append(T.ypr_from_rot(np.asarray(gt_r).reshape(3, 3)))
+    imgs, ts, ys = torch.stack(imgs), np.stack(ts), np.stack(ys)
+    box = (room["lo"], room["hi"], room["mask"])
+
+    outs = [descend(imgs[0], room["xyz"], room["rgb"], ts[:1], ys[:1], *box,
+                    masked=True, device=dev, _eager=eager, **kw)
+            for eager in (False, True)]
+    a, b = outs
+    if not all(torch.equal(x, y) for x, y in ((a.t, b.t), (a.ypr, b.ypr),
+                                              (a.loss, b.loss), (a.lr, b.lr))):
+        raise AssertionError("tracked frame: graphed and eager descents differ")
+    log("graph vs eager, tracked OmniScenes frame (2048x1024, bf16 table, "
+        "1 start x 30): final pose, loss and lr bit-equal")
+
+    def single(k):
+        return T.track_step_fetched(imgs[k], room["xyz"], room["rgb"], ts[k],
+                                    ys[k], *box, device=dev, **kw)
+
+    def batch(K):
+        return T.track_steps_batched(imgs[:K], room["xyz"], room["rgb"],
+                                     ts[:K], ys[:K], *box, device=dev, **kw)
+
+    out = {}
+    for K in (1, 2, 4):
+        got = batch(K)
+        worst = 0.0
+        for k in range(K):
+            want = single(k)
+            if K == 1:
+                if not all(np.array_equal(x, y) for x, y in zip(got[k][:3],
+                                                                want[:3])):
+                    raise AssertionError("K = 1 differs from track_step")
+            d = max(float(np.abs(got[k][0] - want[0]).max()),
+                    float(np.abs(got[k][1] - want[1]).max()))
+            worst = max(worst, d)
+            if not d <= BATCH_BOUND:
+                raise AssertionError(f"K = {K}, stream {k}: {d} from its "
+                                     "own track_step")
+        walls_b, walls_s = [], []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch(K)
+            walls_b.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            for k in range(K):
+                single(k)
+            walls_s.append(time.perf_counter() - t0)
+        dev_b = cuda_ms(lambda: batch(K), reps=5, lead=BATCH_LEAD_CYCLES)
+        dev_s = cuda_ms(lambda: [single(k) for k in range(K)], reps=5,
+                        lead=BATCH_LEAD_CYCLES)
+        out[K] = dict(wall_batch=float(np.median(walls_b)),
+                      wall_single=float(np.median(walls_s)),
+                      device_batch=dev_b, device_single=dev_s, worst=worst)
+        log(f"track_steps_batched K = {K}: streams within {worst:.3g} of their "
+            f"own track_step (m or rad); wall {out[K]['wall_batch'] * 1e3:.2f} "
+            f"ms against {K} single steps' {out[K]['wall_single'] * 1e3:.2f} "
+            f"ms; device {dev_b:.2f} ms against {dev_s:.2f} ms")
+    # the witness that the K > 1 gap is the order of the batch's reductions
+    # alone: each stream of the K = 4 batch ends bit for bit where it ends
+    # in a K = 4 batch of four copies of itself, and the copies agree
+    got4 = batch(4)
+    for k in range(4):
+        copies = T.track_steps_batched(
+            imgs[k:k + 1].repeat(4, 1, 1, 1), room["xyz"], room["rgb"],
+            np.repeat(ts[k:k + 1], 4, 0), np.repeat(ys[k:k + 1], 4, 0), *box,
+            device=dev, **kw)
+        if not all(np.array_equal(c[i], got4[k][i]) for c in copies
+                   for i in range(3)):
+            raise AssertionError(f"stream {k} of a K = 4 batch differs from "
+                                 "a batch of four copies of itself")
+    gap = out[4]["worst"]
+    log(f"track_steps_batched witness: each stream of the K = 4 batch "
+        f"bit-equal to a K = 4 batch of four copies of itself; the batch's "
+        f"{gap:.3g} (m or rad) from single steps is its reduction order")
+    out["copies_gap"] = gap
+    one_dev = out[1]["device_batch"]
+    log(f"track_steps_batched device time over one stream's: K = 2 "
+        f"x{out[2]['device_batch'] / one_dev:.2f}, K = 4 "
+        f"x{out[4]['device_batch'] / one_dev:.2f}")
+    return out
 
 
 def timed(name, fn, *args):
     t0 = time.time()
     out = fn(*args)
     log(f"phase {name}: {time.time() - t0:.2f} s")
+    note_graphs()
     return out
 
 
@@ -1964,6 +2535,7 @@ def main():
     timed("small reference", phase_small_reference, dev)
     _, median_s = timed("main path", phase_main_path, room, dev)
     timed("profile", phase_profile, room, dev, median_s)
+    timed("graph vs eager", phase_graph_vs_eager, room, dev)
     timed("speed modes", phase_speed_modes, room, dev)
     del room
     torch.cuda.empty_cache()
@@ -1974,6 +2546,7 @@ def main():
         torch.cuda.empty_cache()
         launched = timed("cli", phase_cli, cli, dev)
         cli_tree = cli["tree"]
+        timed("cli stanford_parallel", phase_cli_parallel, cli_tree, dev)
         del cli
         torch.cuda.empty_cache()
         timed("serving", phase_serving, dev, tmp, cli_tree)
@@ -1988,6 +2561,7 @@ def main():
                          dev, runs["fused"])
         timed("tracked frame profile", phase_omni_track_profile, o, dev,
               tracking["tracking"]["tracked_s"])
+        timed("omniscenes batched tracking", phase_omni_batch, o, omni, dev)
         del o
         fused = runs["fused"]["launches"]
         for row in omni_rows:
@@ -2024,6 +2598,12 @@ def main():
         row["launches_per_query"] = None if n_q is None else n / n_q
         row["path"] = ("no query path" if run is None else run
                        if run.startswith("omniscenes") else f"cli run {run}")
+    log("profiles: " + json.dumps(PROFILES))
+    from piccolo_tpu_torch import solver
+
+    counts = {k: v for k, v in solver.graph_stats().items() if k != "graphs"}
+    log("graphs: " + json.dumps(dict(counts, graphs=[GRAPHS[k]
+                                                     for k in sorted(GRAPHS)])))
     keys = ("name", "route", "source", "replaces", "path", "launches",
             "launches_per_query", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

@@ -58,7 +58,7 @@ from ..ops.pano import render_pano
 from ..ops.quantile import cloud_bounds, outside_box
 from ..ops.rotation import rot_from_ypr
 from ..pipeline import localize_query
-from ..solver import descend
+from ..solver import descend, descent_note
 from .imaging import imread_rgb, resize
 from .metrics import (
     OMNISCENES_R_THRESH_DEG,
@@ -1119,7 +1119,7 @@ def localize_stanford(cfg, writer=None, log_dir: str = "./log",
                     summaries.add_text("failed rooms", filename)
 
                 print(f"\n{img_name}")
-                print(f"route : {route}")
+                print(f"route : {route}{descent_note(dev)}")
                 print(f"min_index : {k}")
                 print(f"min loss : {loss_k}")
                 print(f"translation error : {t_err}")
@@ -1432,7 +1432,7 @@ def localize_omniscenes(cfg, writer=None, log_dir: str = "./log",
                     summaries.add_text("failed rooms", filename)
 
                 print(f"\n{filename}")
-                print(f"route : {route}")
+                print(f"route : {route}{descent_note(dev)}")
                 print(f"min_index : {k}")
                 print(f"min loss : {loss_k}")
                 if tracking_on:

@@ -7,7 +7,10 @@
 
 A ``Pose`` may carry leading start dimensions (t (S, 3), angles (S,)): the
 loss then has shape (S,), one independent value per start, which is how
-the port writes out the JAX package's ``vmap`` over starts.
+the port writes out the JAX package's ``vmap`` over starts.  A stack of R
+clouds ((R, N, 3), colours (R, N, 3), mask (R, N)) takes poses with leading
+(R, S) dimensions: room r's S starts score against cloud r, the JAX
+package's ``vmap`` over rooms.
 """
 
 from __future__ import annotations
@@ -51,13 +54,20 @@ def pose_rotation(pose: Pose) -> torch.Tensor:
     return rot_from_ypr(pose.ypr())
 
 
+def _per_room(x: torch.Tensor, dims: int) -> torch.Tensor:
+    """A per-room stack ((R, N) + ``dims`` trailing axes) gets a start axis
+    after R; a single cloud passes through."""
+    return x.unsqueeze(-2 - dims) if x.dim() == 2 + dims else x
+
+
 def transform_cloud(pose: Pose, xyz: torch.Tensor) -> torch.Tensor:
-    """World points (N, 3) -> camera frame (..., N, 3): R @ (x - t).
+    """World points (N, 3) -> camera frame (..., N, 3): R @ (x - t).  A stack
+    of clouds (R, N, 3) takes poses of leading (R, S) and gives (R, S, N, 3).
 
     Elementwise multiply-adds (summed j = 0, 1, 2): full f32 whatever the
     TF32 flags say."""
     R = pose_rotation(pose)
-    c = xyz - pose.t[..., None, :]
+    c = _per_room(xyz, 1) - pose.t[..., None, :]
     return (
         c[..., 0:1] * R[..., None, :, 0]
         + c[..., 1:2] * R[..., None, :, 1]
@@ -77,11 +87,15 @@ def sampling_loss(pose: Pose, xyz: torch.Tensor, rgb: torch.Tensor,
 def sampling_loss_packed(pose: Pose, xyz: torch.Tensor, rgb: torch.Tensor,
                          blocks: torch.Tensor, height: int, width: int,
                          point_mask: Optional[torch.Tensor] = None,
-                         wrap: bool = False) -> torch.Tensor:
+                         wrap: bool = False,
+                         row_offset: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """:func:`sampling_loss` on a packed-neighbourhood table (one gather per
-    point)."""
+    point); ``row_offset`` picks each start's table from a stack
+    (``bilinear_sample_packed``)."""
     coords = spherical_project(transform_cloud(pose, xyz))
-    sampled = bilinear_sample_packed(blocks, height, width, coords, wrap=wrap)
+    sampled = bilinear_sample_packed(blocks, height, width, coords, wrap=wrap,
+                                     row_offset=row_offset)
     return _masked_color_loss(sampled, rgb, point_mask)
 
 
@@ -89,8 +103,8 @@ def _masked_color_loss(sampled, rgb, point_mask):
     # pure-black samples are dropped (reference omniloc.py:198)
     valid = (sampled == 0.0).sum(-1) != 3
     if point_mask is not None:
-        valid = valid & point_mask
-    per_point = safe_norm(sampled - rgb)
+        valid = valid & _per_room(point_mask, 0)
+    per_point = safe_norm(sampled - _per_room(rgb, 1))
     count = valid.sum(-1)
     total = (per_point * valid).sum(-1)
     # a pose that samples nothing scores +inf (ranking discards it; the

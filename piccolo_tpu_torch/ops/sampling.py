@@ -145,10 +145,17 @@ def packed_rows_and_weights(coords: torch.Tensor, height: int, width: int,
 
 def bilinear_sample_packed(blocks: torch.Tensor, height: int, width: int,
                            coords: torch.Tensor, clip: bool = True,
-                           wrap: bool = False) -> torch.Tensor:
+                           wrap: bool = False,
+                           row_offset=None) -> torch.Tensor:
     """One gather per point from a packed table; equal to
-    :func:`bilinear_sample` on the image that produced ``blocks``."""
+    :func:`bilinear_sample` on the image that produced ``blocks``.
+
+    ``row_offset``: K tables of one (height, width) stacked into ``blocks``
+    ((K * rows, 12)); an int32 offset broadcast against ``coords``' leading
+    dims (e.g. (K, 1), k * rows) picks each stream's table."""
     row, wx1, wy1 = packed_rows_and_weights(coords, height, width, clip, wrap)
+    if row_offset is not None:
+        row = row + row_offset
     wx0 = 1.0 - wx1
     wy0 = 1.0 - wy1
     g = blocks[row.to(torch.int64)]

@@ -130,6 +130,7 @@ def localize_query(
     plan_tail: str = "pad",
     descent_multires: Optional[Tuple[int, int]] = None,
     device="cuda",
+    _eager: bool = False,
 ):
     """Localize one panorama; returns a :class:`LocalizeResult`, or
     ``(result, traj)`` with ``trajectory=True`` (``traj`` a Pose whose
@@ -152,7 +153,9 @@ def localize_query(
     ``descent_multires=(low_iters, stride)`` are the descent's speed modes
     (``solver.descend``); both are off by default, and neither combines
     with the other or with ``trajectory``.  Clone rows of the scarce-pair
-    fallback never take a prune survivor slot.
+    fallback never take a prune survivor slot.  On the card the descent
+    replays its captured step (``solver``); ``_eager=True`` runs it as the
+    eager loop instead, the reference the graph is held against.
     """
     check_criterion(criterion)
     if plan_tail not in ("pad", "xla"):
@@ -232,7 +235,7 @@ def localize_query(
             img_main, xyz, rgb, t2, r2, lo, hi, pm, num_iter, lr, patience,
             factor, table_dtype, seam_wrap, trajectory, prune=descent_prune,
             multires=descent_multires, table_arg=descent_table,
-            start_valid=final_valid,
+            start_valid=final_valid, _eager=_eager,
         )
     ypr = params.ypr()
     w = torch.argmin(losses)

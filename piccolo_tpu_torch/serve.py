@@ -20,6 +20,12 @@ Usage (HTTP)::
         --pcd /data/room.txt --port 8321 [--device cpu]
     curl -X POST localhost:8321/localize -d '{"image_path": "pano.png"}'
 
+Tracked requests (``prev_pose``) run one warm-started descent; under
+``track_batch`` the tracked requests queued for one room are drained as one
+batched descent.  ``room="auto"`` ranks the resident rooms by full queries,
+by a probe per room, or (``room_auto_probe = "batched"``) by one probe over
+every room (``probe.py``).
+
 The service runs on one card (``device="cuda"``, the default) unless the
 caller passes ``device="cpu"``.  Round-robin over several cards
 (``query_devices``) and the executable cache (``exec_cache_dir``,
@@ -33,14 +39,15 @@ import base64
 import json
 import threading
 import time
-from collections import OrderedDict
+import warnings
+from collections import OrderedDict, deque
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from .config import cfg_get, make_config, parse_ini
-from .device import resolve_device
+from .device import as_tensor, resolve_device
 from .harness.localize import (
     _drop_slab_plans,
     _FusedGrids,
@@ -123,6 +130,13 @@ class LocalizeService:
         self._max_pending = max(1, int(max_pending))
         self._pending = 0
         self._pending_lock = threading.Lock()
+        # track_batch: tracked requests queued per device, drained as one
+        # batch by whichever request next takes the compute lock
+        self._track_queues = [deque()]
+        self._track_qlocks = [threading.Lock()]
+        # room_auto_probe = "batched": the probe state per device, keyed by
+        # the resident set it was built from
+        self._batched_probes: Dict[int, tuple] = {}
 
     # -- health ------------------------------------------------------------
 
@@ -365,13 +379,7 @@ class LocalizeService:
     def _track_room(self, prep, cache, device_index: int, prev_pose) -> Dict:
         """One warm-started single-start descent (``tracking.track_step``)
         instead of the full pipeline; the same lock and one-copy discipline
-        as :meth:`_compute_room`.
-
-        Every tracked request runs on its own.  ``track_batch`` /
-        ``track_max_batch`` (the JAX package packs queued tracked requests
-        into one program) are accepted and change nothing: the port's
-        descent runs one stream at a time, so a drained batch would do the
-        same work request after request."""
+        as :meth:`_compute_room`."""
         from .tracking import track_step_fetched
 
         _, img_main, rgb_used, prep_timed = prep
@@ -386,6 +394,98 @@ class LocalizeService:
                     cand_loss=np.asarray([loss], np.float32), ypr=ypr,
                     time_s=elapsed, tracked=True)
 
+    def _track_room_maybe_batched(self, prep, cache, device_index: int,
+                                  prev_pose) -> Dict:
+        """``track_batch = True``: tracked requests waiting on the same
+        device for the same room and frame shape are drained as ONE batch
+        (``tracking.track_steps_batched``: one K-start descent, one graph on
+        the card) by whichever request next takes the compute lock.
+
+        A batch forms only from requests already queued, so serial traffic
+        runs the single-stream path with no added latency.  Batches pad up
+        to a power of two (repeating the last stream), so concurrent load
+        meets a handful of descent shapes, not one per K.  A request whose
+        colours were rebound (``sharpen_color``) runs alone: its cloud
+        colours are its own, and the batch shares the room's."""
+        _, img_main, rgb_used, prep_timed = prep
+        if (not cfg_get(self.cfg, "track_batch", False)
+                or rgb_used is not cache["rgb"]):
+            return self._track_room(prep, cache, device_index, prev_pose)
+        t_prev, ypr_prev = self._parse_prev_pose(prev_pose)
+        entry = dict(img=img_main, t=t_prev, ypr=ypr_prev,
+                     prep_timed=prep_timed,
+                     key=(id(cache), tuple(img_main.shape)),
+                     event=threading.Event(), out=None)
+        qlock = self._track_qlocks[device_index]
+        queue = self._track_queues[device_index]
+        with qlock:
+            queue.append(entry)
+        with self._compute_locks[device_index]:
+            if not entry["event"].is_set():
+                with qlock:
+                    # drain by identity: entries hold arrays, on which
+                    # deque.remove's == is ambiguous
+                    max_batch = max(
+                        1, int(cfg_get(self.cfg, "track_max_batch", 8)))
+                    batch, keep = [entry], []
+                    for e in queue:
+                        if e is entry:
+                            continue
+                        if (e["key"] == entry["key"]
+                                and len(batch) < max_batch):
+                            batch.append(e)
+                        else:
+                            keep.append(e)
+                    queue.clear()
+                    queue.extend(keep)
+                self._run_track_batch(batch, cache)
+        out = entry["out"]
+        if isinstance(out, BaseException):
+            raise out
+        return out
+
+    def _run_track_batch(self, batch, cache) -> None:
+        """Run one drained batch of tracked requests (compute lock held)
+        and hand each request its answer, with ``"batched": K`` when
+        K > 1."""
+        from .tracking import track_step_fetched, track_steps_batched
+
+        try:
+            t0 = time.time()
+            kw = self._track_kw()
+            if len(batch) == 1:
+                e = batch[0]
+                results = [track_step_fetched(
+                    e["img"], cache["xyz"], cache["rgb"], e["t"], e["ypr"],
+                    cache["lo"], cache["hi"], cache["mask"], **kw)]
+            else:
+                bucket = 2
+                while bucket < len(batch):
+                    bucket *= 2
+                rows = batch + [batch[-1]] * (bucket - len(batch))
+                imgs = torch.stack([as_tensor(e["img"], self.device,
+                                              torch.float32) for e in rows])
+                results = track_steps_batched(
+                    imgs, cache["xyz"], cache["rgb"],
+                    np.stack([e["t"] for e in rows]),
+                    np.stack([e["ypr"] for e in rows]),
+                    cache["lo"], cache["hi"], cache["mask"], **kw,
+                )[: len(batch)]
+            elapsed = time.time() - t0
+            extra = {"batched": len(batch)} if len(batch) > 1 else {}
+            for e, (t, ypr, rot, loss) in zip(batch, results):
+                e["out"] = dict(t=t, rot=rot, loss=loss, winner=0,
+                                cand_loss=np.asarray([loss], np.float32),
+                                ypr=ypr, time_s=elapsed + e["prep_timed"],
+                                tracked=True, **extra)
+        except BaseException as exc:
+            for e in batch:
+                e["out"] = exc
+            raise
+        finally:
+            for e in batch:
+                e["event"].set()
+
     def _probe_room(self, prep, cache, device_index: int) -> float:
         """The per-room ranking probe of room='auto': stages 1 and 2, then
         a short pruned descent at the init resolution
@@ -399,6 +499,53 @@ class LocalizeService:
             )
             return float(res.loss)
 
+    def _probe_state_batched(self, device_index: int):
+        """The batched probe's tensors for the current resident set
+        (``probe.build_probe_state``), rebuilt when the set changes."""
+        from .probe import build_probe_state
+
+        with self._rooms_lock:
+            rooms = [(n, r[device_index]) for n, r in self._rooms.items()]
+        key = tuple((n, id(c)) for n, c in rooms)
+        held = self._batched_probes.get(device_index)
+        if held is None or held[0] != key:
+            # the rotation grid is config-derived, identical across rooms
+            st = build_probe_state(
+                rooms, rooms[0][1]["grids"].rot,
+                max_pairs=int(cfg_get(self.cfg, "room_auto_probe_pairs",
+                                      512)),
+                device=self.device)
+            held = self._batched_probes[device_index] = (key, st)
+        return held[1]
+
+    def _probe_kwargs(self) -> Dict:
+        return dict(
+            num_starts=int(cfg_get(self.cfg, "room_auto_probe_starts", 6)),
+            num_iter=int(cfg_get(self.cfg, "room_auto_probe_iters", 30)),
+            lr=cfg_get(self.cfg, "lr", 0.1),
+            patience=cfg_get(self.cfg, "patience", 5),
+            factor=cfg_get(self.cfg, "factor", 0.8),
+            wrap=bool(cfg_get(self.cfg, "seam_wrap", False)),
+        )
+
+    def _batched_probe_usable(self, n_rooms: int) -> bool:
+        """The batched probe shares ONE prepared init image across rooms,
+        so per-room colour prep (``match_color`` / ``sharpen_color`` rebind
+        against each room's cloud) rules it out: the per-room probe runs
+        instead, with a one-time warning."""
+        if n_rooms < 2:
+            return False
+        if (cfg_get(self.cfg, "match_color", False)
+                or cfg_get(self.cfg, "sharpen_color", False)):
+            if not getattr(self, "_warned_batched_color", False):
+                self._warned_batched_color = True
+                warnings.warn(
+                    "room_auto_probe='batched' needs a room-independent "
+                    "init image; match_color/sharpen_color rebind colours "
+                    "per room — falling back to the per-room probe")
+            return False
+        return True
+
     def _select_room(self, img: np.ndarray, device_index: int):
         """room='auto': pick the resident room whose localization loss is
         lowest.
@@ -411,11 +558,13 @@ class LocalizeService:
         (:meth:`_probe_room`) ranks the rooms; only rooms whose probe loss
         is within ``room_auto_margin`` (default 3x) of the best run the full
         query (the full loop over every room when no probe loss is
-        finite).  ``room_auto_probe = "batched"`` runs the same per-room
-        probe: the JAX package's one-program probe over the resident set
-        has no counterpart in the port yet (its descent runs one room at a
-        time), and the JAX package itself falls back to the per-room probe
-        under ``match_color`` / ``sharpen_color``.
+        finite).  ``room_auto_probe = "batched"``: ONE probe scores every
+        resident room (``probe.probe_rooms``: a truncated loss table per
+        room, then one descent of every room's starts, one (R,) copy) on a
+        per-room pair budget (``room_auto_probe_pairs``), and the finalists
+        follow as above.  It shares one prepared image across rooms, so
+        under ``match_color`` / ``sharpen_color`` the per-room probe runs
+        instead (:meth:`_batched_probe_usable`).
         """
         with self._rooms_lock:
             candidates = [(name, replicas[device_index])
@@ -431,8 +580,25 @@ class LocalizeService:
 
         probe_cfg = cfg_get(self.cfg, "room_auto_probe", False)
         probe = bool(probe_cfg) and len(candidates) > 1
+        batched = (probe and probe_cfg == "batched"
+                   and self._batched_probe_usable(len(candidates)))
         order, cut = candidates, None
-        if probe:
+        if batched:
+            st = self._probe_state_batched(device_index)
+            prep0 = next_prep[0]
+            with self._compute_locks[device_index]:
+                losses = st.losses(prep0[0], **self._probe_kwargs())
+            # the images are room-independent here, but rgb_used must be
+            # each room's own colours (identity with cache["rgb"] admits the
+            # room's baked plans in _run_fused)
+            for name, cache in candidates:
+                preps[name] = (prep0[0], prep0[1], cache["rgb"], prep0[3])
+            scores.update(zip(st.names, (float(v) for v in losses)))
+            for name, _ in candidates:
+                # a load or eviction between the snapshot and the state's
+                # rebuild leaves a candidate unscored: a non-finalist
+                scores.setdefault(name, float("inf"))
+        elif probe:
             for i, (name, cache) in enumerate(candidates):
                 prep = preps[name] = next_prep[0]
                 th = None
@@ -443,7 +609,8 @@ class LocalizeService:
                 scores[name] = self._probe_room(prep, cache, device_index)
                 if th is not None:
                     th.join()
-            finite =[s for s in scores.values() if np.isfinite(s)]
+        if probe:
+            finite = [s for s in scores.values() if np.isfinite(s)]
             if finite:
                 margin = float(cfg_get(self.cfg, "room_auto_margin", 3.0))
                 cut = min(finite) * margin
@@ -520,8 +687,8 @@ class LocalizeService:
                 cache = self._rooms[room][device_index]
             prep = self._prepare(img, cache)
             if prev_pose is not None:
-                fields = self._track_room(prep, cache, device_index,
-                                          prev_pose)
+                fields = self._track_room_maybe_batched(
+                    prep, cache, device_index, prev_pose)
                 if recover_above is not None and not (
                     np.isfinite(fields["loss"])
                     and fields["loss"] <= float(recover_above)

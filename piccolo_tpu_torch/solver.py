@@ -1,24 +1,46 @@
 """Multi-start gradient-descent pose solver (port of piccolo_tpu.solver).
 
 All starts advance together: the pose leaves carry a leading start
-dimension where the JAX package uses ``vmap``, and the iterations are a
-Python loop where it uses ``lax.scan``.  Each start's loss depends only on
-its own pose, so one ``autograd.grad`` of the summed losses gives every
-start its own gradient.  The translation clamp applies to the parameters
-only, after each Adam update (Adam moments are not projected).
+dimension where the JAX package uses ``vmap``.  Each start's loss depends
+only on its own pose, so one ``autograd.grad`` of the summed losses gives
+every start its own gradient.  The translation clamp applies to the
+parameters only, after each Adam update (Adam moments are not projected).
+
+On the card the descent is one captured device program, the counterpart of
+the JAX package's ``lax.scan`` under ``jit``: the step (forward,
+``autograd.grad``, Adam + plateau, clamp) is captured once per shape key as
+a CUDA graph that reads and writes static buffers in place, and a descent
+copies its inputs in, replays the graph once per iteration and returns
+clones of the buffers.  The key is the device, the statics (table height
+and width, patience, factor, wrap) and the shape and dtype of every input
+and pose leaf (starts, cloud rows, table rows and dtype, masked or not).
+Each graph has its own memory pool; an LRU per device evicts the least
+recently used graphs while the pools and static buffers exceed
+:data:`GRAPH_MEM_FRACTION` of the card (:func:`graph_stats` counts
+captures, evictions and recaptures), and an evicted graph's pool goes with
+its last reference.  On the CPU, under
+``torch.autograd.set_detect_anomaly`` (``debug_nans``: it syncs the host,
+which a capture cannot hold) and through the private ``_eager`` argument
+the same step runs as a Python loop, one op at a time; the graph replays
+that loop's kernels, so both give the same bits.
 
 Two opt-in speed modes have no reference counterpart: the pruned descent
 (every start for ``prune_iter`` iterations, then only the ``prune_keep``
 best finish the budget) and the multi-resolution descent (the first
 ``low_iters`` iterations on a stride-downsampled table).  Both carry the
-Adam and plateau state exactly across their split.
+Adam and plateau state exactly across their split; each phase is a graph
+of its own.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
-from typing import Optional, Tuple
+import threading
+import time
+from collections import OrderedDict
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -32,9 +54,8 @@ from .ops.sampling import (
 )
 from .optim import AdamPlateauState, adam_plateau_step, init_adam_plateau
 
-__all__ = ["SolveResult", "descend", "evaluate_poses", "solve"]
-
-
+__all__ = ["SolveResult", "descend", "evaluate_poses", "solve",
+           "graph_stats", "descent_note", "GRAPH_MEM_FRACTION"]
 @dataclasses.dataclass
 class SolveResult:
     """All starts' final states, in input order."""
@@ -117,14 +138,36 @@ def _make_step_for(loss_fn, lo, hi, patience, factor):
     return step
 
 
-def _make_step(blocks, height, width, xyz, rgb, lo, hi, point_mask,
-               patience, factor, wrap):
+class StepInputs(NamedTuple):
+    """The tensors one descent step reads: a graph's static buffers."""
+
+    blocks: torch.Tensor  # packed table, or K stacked tables
+    xyz: torch.Tensor  # (N, 3), or (R, N, 3) with poses of leading (R, S)
+    rgb: torch.Tensor
+    point_mask: Optional[torch.Tensor]
+    lo: torch.Tensor  # clamp box, broadcast against the poses' t
+    hi: torch.Tensor
+    row_offset: Optional[torch.Tensor]  # per-start table offset (stacked)
+
+
+class StepStatics(NamedTuple):
+    """The Python values baked into a step (part of a graph's key)."""
+
+    height: int
+    width: int
+    patience: int
+    factor: float
+    wrap: bool
+
+
+def _make_step(x: StepInputs, s: StepStatics):
     """The step on a packed sampling table built once by the caller."""
     return _make_step_for(
         lambda p: sampling_loss_packed(
-            p, xyz, rgb, blocks, height, width, point_mask, wrap=wrap
+            p, x.xyz, x.rgb, x.blocks, s.height, s.width, x.point_mask,
+            wrap=s.wrap, row_offset=x.row_offset,
         ),
-        lo, hi, patience, factor,
+        x.lo, x.hi, s.patience, s.factor,
     )
 
 
@@ -132,14 +175,235 @@ def _packed_table(img, table_dtype: str, wrap: bool):
     return cast_packed_table(pack_bilinear_blocks(img, wrap=wrap), table_dtype)
 
 
-def _run(step, params, state, n: int, trajectory: bool = False):
-    """``n`` steps; returns (params, state, last loss, per-step params)."""
+def _state_leaves(params: Pose, state: AdamPlateauState):
+    return (*params.leaves(), *state.m.leaves(), *state.v.leaves(),
+            state.count, state.lr, state.best, state.num_bad)
+
+
+def _from_leaves(leaves):
+    return (Pose(*leaves[0:4]), AdamPlateauState(
+        m=Pose(*leaves[4:8]), v=Pose(*leaves[8:12]), count=leaves[12],
+        lr=leaves[13], best=leaves[14], num_bad=leaves[15]))
+
+
+def _graphed(device: torch.device, eager: bool) -> bool:
+    """The card runs the captured step unless the caller asks for the eager
+    loop or anomaly detection (``debug_nans``) is on."""
+    return (device.type == "cuda" and not eager
+            and not torch.is_anomaly_enabled())
+
+
+def descent_note(device) -> str:
+    """What a printed route adds about the descent: the eager loop that
+    ``debug_nans`` forces on the card, else nothing."""
+    if torch.device(device).type == "cuda" and torch.is_anomaly_enabled():
+        return ", eager descent (debug_nans)"
+    return ""
+
+
+def _run(x: StepInputs, s: StepStatics, params, state, n: int,
+         trajectory: bool = False, eager: bool = False):
+    """``n`` steps; returns (params, state, last loss, trajectory): the
+    trajectory a Pose whose leaves lead with (starts, n), else None."""
+    if _graphed(params.t.device, eager):
+        return _graph_for(x, s, params, state).run(x, params, state, n,
+                                                   trajectory)
+    step = _make_step(x, s)
     loss, states = None, []
     for _ in range(n):
         params, state, loss = step(params, state)
         if trajectory:
             states.append(params)
-    return params, state, loss, states
+    traj = None
+    if trajectory:
+        traj = Pose(*[torch.stack(xs, dim=params.yaw.dim())
+                      for xs in zip(*(p.leaves() for p in states))])
+    return params, state, loss, traj
+
+
+# ---------------------------------------------------------------------------
+# the captured step
+
+# the graphs' pools and static buffers on one device, as a share of its
+# memory: the slab plans keep 9/16 of the card, and a multi-room service's
+# keys take well under this (PERF.md, section 6)
+GRAPH_MEM_FRACTION = 1 / 16
+WARMUP_STEPS = 3
+_GRAPHS: "OrderedDict[tuple, _StepGraph]" = OrderedDict()
+_PENDING: "dict[tuple, threading.Event]" = {}  # keys being captured
+_COUNTS = dict(captures=0, evictions=0, recaptures=0)
+_EVICTED: set = set()
+_GRAPHS_LOCK = threading.Lock()  # the cache's tables; never held long
+# one capture at a time in the process: entering a capture empties the
+# allocator's cache, which must not happen while another capture is open.
+# Plan builds are not held off: they run on other streams, and the capture
+# mode is thread-local (a build that runs out of memory during a capture
+# fails into the gather engine, as any failed build does)
+_CAPTURE_LOCK = threading.Lock()
+_CAPTURES = itertools.count(1)
+
+
+def _shapes(tensors):
+    return tuple(None if t is None else (tuple(t.shape), t.dtype)
+                 for t in tensors)
+
+
+class _StepGraph:
+    """One captured step over static buffers, and its replays.
+
+    The buffers start as copies of the capturing call's inputs and state,
+    on which ``WARMUP_STEPS`` steps run eagerly on a side stream first (the
+    autograd engine and the allocator initialise lazily, and a capture must
+    not see that); every call then copies its own values in.  Capture runs
+    with ``capture_error_mode="thread_local"``: the plan-build, plan-save,
+    prefetch, serving and HTTP threads may use the card meanwhile (their
+    work goes to other streams and their allocations to the default pool),
+    while a sync or an unsafe call from the capturing thread itself still
+    fails the capture.
+    """
+
+    def __init__(self, key, x: StepInputs, s: StepStatics, params, state):
+        dev = params.t.device
+        self.key = key
+        self.number = next(_CAPTURES)
+        self.lock = threading.Lock()
+        self.done = None  # event after the last call's clones
+        self.replays = 0
+        self.inputs = StepInputs(*[None if t is None else t.clone()
+                                   for t in x])
+        self.bufs = [t.clone() for t in _state_leaves(params, state)]
+        self.loss = torch.empty_like(params.yaw)
+        step = _make_step(self.inputs, s)
+
+        def body():
+            p, st, loss = step(*_from_leaves(self.bufs))
+            for dst, src in zip(self.bufs, _state_leaves(p, st)):
+                dst.copy_(src)
+            self.loss.copy_(loss)
+
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_STEPS):
+                body()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            body()
+        self.capture_s = time.perf_counter() - t0
+        pool = tuple(self.graph.pool())
+        self.pool_bytes = sum(
+            seg["total_size"] for seg in torch.cuda.memory_snapshot()
+            if tuple(seg.get("segment_pool_id", ())) == pool)
+        self.static_bytes = sum(
+            t.numel() * t.element_size()
+            for t in (*self.inputs, *self.bufs, self.loss) if t is not None)
+
+    def run(self, x: StepInputs, params, state, n: int, trajectory: bool):
+        """Copy ``x``, ``params`` and ``state`` in, replay ``n`` times and
+        return clones, as :func:`_run` does."""
+        with self.lock:
+            stream = torch.cuda.current_stream(self.loss.device)
+            if self.done is not None:  # a call on another stream
+                stream.wait_event(self.done)
+            for dst, src in zip(self.inputs, x):
+                if dst is not None:
+                    dst.copy_(src)
+            for dst, src in zip(self.bufs, _state_leaves(params, state)):
+                dst.copy_(src)
+            traj = None
+            if trajectory:
+                traj = [torch.empty(t.shape[:1] + (n,) + t.shape[1:],
+                                    dtype=t.dtype, device=t.device)
+                        for t in self.bufs[:4]]
+            for i in range(n):
+                self.graph.replay()
+                if trajectory:
+                    for dst, src in zip(traj, self.bufs[:4]):
+                        dst[:, i].copy_(src)
+            self.replays += n
+            p, st = _from_leaves([t.clone() for t in self.bufs])
+            loss = self.loss.clone()
+            self.done = torch.cuda.Event()
+            self.done.record(stream)
+        return p, st, loss, None if traj is None else Pose(*traj)
+
+    def stats(self) -> dict:
+        dev, statics, inputs, leaves = self.key
+        return dict(capture=self.number, device=str(dev),
+                    height=statics.height,
+                    width=statics.width, starts=tuple(leaves[1][0]),
+                    table=inputs[0][0], table_dtype=str(inputs[0][1]),
+                    cloud=inputs[1][0], masked=inputs[3] is not None,
+                    stacked=inputs[6] is not None,
+                    capture_s=self.capture_s, pool_bytes=self.pool_bytes,
+                    static_bytes=self.static_bytes, replays=self.replays)
+
+
+def _graph_for(x: StepInputs, s: StepStatics, params, state) -> _StepGraph:
+    """The cached graph for this shape key, captured on a miss.  The lookup
+    holds the cache lock only briefly: a capture runs outside it, so calls
+    on other keys go on meanwhile, and calls missing the same key wait for
+    its one capture (and capture it themselves if it failed)."""
+    dev = params.t.device
+    key = (dev, s, _shapes(x), _shapes(params.leaves()))
+    while True:
+        with _GRAPHS_LOCK:
+            g = _GRAPHS.get(key)
+            if g is not None:
+                _GRAPHS.move_to_end(key)
+                return g
+            pending = _PENDING.get(key)
+            if pending is None:
+                pending = _PENDING[key] = threading.Event()
+                break
+        pending.wait()
+    try:
+        with _CAPTURE_LOCK:
+            g = _StepGraph(key, x, s, params, state)
+        with _GRAPHS_LOCK:
+            _COUNTS["captures"] += 1
+            _COUNTS["recaptures"] += key in _EVICTED
+            _GRAPHS[key] = g
+            _evict(dev, key)
+    finally:
+        with _GRAPHS_LOCK:
+            del _PENDING[key]
+        pending.set()
+    return g
+
+
+def _evict(dev, keep) -> None:
+    """Drop ``dev``'s least recently used graphs, never ``keep``, while its
+    graphs' pools and static buffers exceed GRAPH_MEM_FRACTION of the card
+    (a call still replaying an evicted graph keeps it alive)."""
+    total = torch.cuda.get_device_properties(dev).total_memory
+    cap = GRAPH_MEM_FRACTION * total
+    mine = [k for k in _GRAPHS if k[0] == dev]
+    held = sum(_GRAPHS[k].pool_bytes + _GRAPHS[k].static_bytes for k in mine)
+    for k in mine:
+        if held <= cap:
+            break
+        if k != keep:
+            g = _GRAPHS.pop(k)
+            held -= g.pool_bytes + g.static_bytes
+            _COUNTS["evictions"] += 1
+            _EVICTED.add(k)
+
+
+def graph_stats() -> dict:
+    """``graphs``: one dict per cached graph, least recently used first (its
+    capture's number in this process, its key's shapes, capture seconds
+    with the warm-up, memory pool and static buffer bytes, replays so far);
+    and the process's ``captures``, ``evictions`` and ``recaptures`` (a
+    capture of a key evicted before)."""
+    with _GRAPHS_LOCK:
+        return dict(graphs=[g.stats() for g in _GRAPHS.values()], **_COUNTS)
+
+
+# ---------------------------------------------------------------------------
+# the descent
 
 
 def _take(tree, idx: torch.Tensor):
@@ -152,9 +416,8 @@ def _take(tree, idx: torch.Tensor):
         lr=tree.lr[idx], best=tree.best[idx], num_bad=tree.num_bad[idx])
 
 
-def _descend_pruned(blocks, height, width, xyz, rgb, params, state, lo, hi,
-                    point_mask, num_iter, patience, factor, wrap,
-                    prune_iter: int, prune_keep: int, start_valid=None):
+def _descend_pruned(x, s, params, state, num_iter, prune_iter: int,
+                    prune_keep: int, start_valid=None, eager=False):
     """Every start for ``prune_iter`` steps, then the ``prune_keep``
     lowest-loss survivors finish the budget with their whole optimizer state
     (moments, step count, learning rate, plateau best and counter).  Results
@@ -162,18 +425,19 @@ def _descend_pruned(blocks, height, width, xyz, rgb, params, state, lo, hi,
 
     One stable argsort gives disjoint survivor and pruned sets even on ties;
     ``start_valid`` False rows (clones of the best start) rank +inf, so a
-    clone's identical phase-1 loss never takes a survivor slot."""
-    step = _make_step(blocks, height, width, xyz, rgb, lo, hi, point_mask,
-                      patience, factor, wrap)
-    params1, state1, loss1, _ = _run(step, params, state, prune_iter)
+    clone's identical phase-1 loss never takes a survivor slot.  On the card
+    each phase is a graph of its own (the survivors are a second key); the
+    argsort and the gathers between them run eagerly."""
+    params1, state1, loss1, _ = _run(x, s, params, state, prune_iter,
+                                     eager=eager)
     rank = loss1
     if start_valid is not None:
         rank = torch.where(start_valid, loss1, torch.full_like(loss1, math.inf))
     order = torch.argsort(rank, stable=True)
     keep, drop = order[:prune_keep], order[prune_keep:]
-    params2, state2, loss2, _ = _run(step, _take(params1, keep),
+    params2, state2, loss2, _ = _run(x, s, _take(params1, keep),
                                      _take(state1, keep),
-                                     num_iter - prune_iter)
+                                     num_iter - prune_iter, eager=eager)
     inv = torch.argsort(order)
     dropped = _take(params1, drop)
     params = Pose(*[torch.cat([a, b])[inv]
@@ -183,54 +447,64 @@ def _descend_pruned(blocks, height, width, xyz, rgb, params, state, lo, hi,
     return params, losses, lrs
 
 
+def descend_packed(x: StepInputs, s: StepStatics, t0s, ypr0s, num_iter: int,
+                   lr: float, trajectory: bool = False, _eager: bool = False):
+    """Descend starts of any leading shape ((S,), or (R, S) against a stack
+    of R clouds, or (K,) on K stacked tables through ``x.row_offset``) on a
+    packed table built by the caller, from a fresh optimizer state.  Returns
+    ``(params, losses, lrs, traj)`` as :func:`descend_starts` does."""
+    params = Pose(t=t0s, yaw=ypr0s[..., 0], pitch=ypr0s[..., 1],
+                  roll=ypr0s[..., 2])
+    state = init_adam_plateau(params, lr)
+    params, state, loss, traj = _run(x, s, params, state, num_iter,
+                                     trajectory, eager=_eager)
+    return params, loss, state.lr, traj
+
+
 def descend_starts(img, xyz, rgb, t0s, ypr0s, lo, hi, point_mask, num_iter,
                    lr, patience, factor, table_dtype="float32", wrap=False,
                    trajectory=False, prune=None, multires=None,
-                   table_arg="auto", start_valid=None):
+                   table_arg="auto", start_valid=None, _eager=False):
     """Descend (S, 3) starts for ``num_iter`` iterations on (H, W, 3)
     ``img``, with its packed table in ``table_dtype``.
 
     ``prune``/``multires`` select the speed modes (validated here; the
     multi-resolution table resolves its own dtype from ``table_arg``).
     Returns ``(params, losses, lrs, traj)``; ``traj`` is a Pose whose leaves
-    lead with (S, num_iter) when ``trajectory`` is set, else None."""
+    lead with (S, num_iter) when ``trajectory`` is set, else None.  On the
+    card the iterations replay the captured step; ``_eager=True`` runs the
+    eager loop there instead (the reference the graph is held against)."""
     H, W, _ = img.shape
-    blocks = _packed_table(img, table_dtype, wrap)
     prune = _check_prune(prune, num_iter, t0s.shape[0], trajectory)
     multires = _check_multires(multires, num_iter, prune, trajectory)
+    x = StepInputs(_packed_table(img, table_dtype, wrap), xyz, rgb,
+                   point_mask, lo, hi, None)
+    s = StepStatics(H, W, int(patience), float(factor), bool(wrap))
+    if multires is None and prune is None:
+        return descend_packed(x, s, t0s, ypr0s, num_iter, lr, trajectory,
+                              _eager)
     params = Pose(t=t0s, yaw=ypr0s[:, 0], pitch=ypr0s[:, 1],
                   roll=ypr0s[:, 2])
     state = init_adam_plateau(params, lr)
     if prune is not None:
         params, losses, lrs = _descend_pruned(
-            blocks, H, W, xyz, rgb, params, state, lo, hi, point_mask,
-            num_iter, patience, factor, wrap, prune[0], prune[1],
-            start_valid=start_valid,
+            x, s, params, state, num_iter, prune[0], prune[1],
+            start_valid=start_valid, eager=_eager,
         )
         return params, losses, lrs, None
-    step = _make_step(blocks, H, W, xyz, rgb, lo, hi, point_mask, patience,
-                      factor, wrap)
-    n_full = num_iter
-    if multires is not None:
-        # the first k_low iterations on img[::s, ::s], whose table resolves
-        # its own dtype (a small table stays f32 under auto); the final
-        # loss is a full-resolution one
-        k_low, s = multires
-        img_lo = img[::s, ::s].contiguous()
-        h_lo, w_lo = int(img_lo.shape[0]), int(img_lo.shape[1])
-        blocks_lo = _packed_table(
-            img_lo, resolve_descent_table(table_arg, h_lo, w_lo), wrap)
-        step_lo = _make_step(blocks_lo, h_lo, w_lo, xyz, rgb, lo, hi,
-                             point_mask, patience, factor, wrap)
-        params, state, _, _ = _run(step_lo, params, state, k_low)
-        n_full = num_iter - k_low
-    params, state, loss, states = _run(step, params, state, n_full,
-                                       trajectory)
-    traj = None
-    if trajectory:
-        traj = Pose(*[torch.stack(xs, dim=1)
-                      for xs in zip(*(p.leaves() for p in states))])
-    return params, loss, state.lr, traj
+    # the first k_low iterations on img[::s, ::s], whose table resolves its
+    # own dtype (a small table stays f32 under auto); the final loss is a
+    # full-resolution one
+    k_low, stride = multires
+    img_lo = img[::stride, ::stride].contiguous()
+    h_lo, w_lo = int(img_lo.shape[0]), int(img_lo.shape[1])
+    x_lo = x._replace(blocks=_packed_table(
+        img_lo, resolve_descent_table(table_arg, h_lo, w_lo), wrap))
+    params, state, _, _ = _run(x_lo, s._replace(height=h_lo, width=w_lo),
+                               params, state, k_low, eager=_eager)
+    params, state, loss, _ = _run(x, s, params, state, num_iter - k_low,
+                                  eager=_eager)
+    return params, loss, state.lr, None
 
 
 def descend(img, xyz, rgb, trans0, ypr0, lo, hi,
@@ -240,7 +514,7 @@ def descend(img, xyz, rgb, trans0, ypr0, lo, hi,
             table_dtype: str = "auto", wrap: bool = False,
             prune: Optional[Tuple[int, int]] = None,
             multires: Optional[Tuple[int, int]] = None,
-            start_valid=None, device="cuda"):
+            start_valid=None, device="cuda", _eager: bool = False):
     """Descend all candidates in parallel; returns a :class:`SolveResult`
     (and the trajectory Pose when ``trajectory``).
 
@@ -251,7 +525,8 @@ def descend(img, xyz, rgb, trans0, ypr0, lo, hi,
     Both are off by default (the reference descends every start at one
     resolution), and neither combines with the other or with
     ``trajectory``.  ``start_valid`` (S,) bool marks clone rows False so
-    they never take a survivor slot."""
+    they never take a survivor slot.  ``_eager``: as
+    :func:`descend_starts`."""
     dev = resolve_device(device)
     img = as_tensor(img, dev, torch.float32)
     xyz = as_tensor(xyz, dev, torch.float32)
@@ -266,7 +541,7 @@ def descend(img, xyz, rgb, trans0, ypr0, lo, hi,
         as_tensor(hi, dev, torch.float32), pm, num_iter, lr, patience, factor,
         resolve_descent_table(table_dtype, H, W), wrap, trajectory,
         prune=prune, multires=multires, table_arg=table_dtype,
-        start_valid=sv,
+        start_valid=sv, _eager=_eager,
     )
     result = SolveResult(t=params.t, ypr=params.ypr(),
                          rot=pose_rotation(params), loss=losses, lr=lrs)

@@ -13,6 +13,9 @@ the iterations.  An opt-in extension with no reference counterpart:
     losses (:class:`DivergenceGate`) and recovery through an injected
     ``recover`` callable (typically a full ``localize_query``).
 
+  * :func:`track_steps_batched`: K streams' frames of one room as one
+    K-start descent (one graph on the card), one packed (K, 16) copy.
+
 Results come to the host as ONE packed 16-float copy (t, ypr, rot, loss).
 Entry points run on the card unless the caller passes ``device="cpu"``.
 The executable cache (``exec_cache_dir``) belongs to a later slice of the
@@ -31,8 +34,17 @@ from .color import SharpenTensors, color_match_device, color_mod_device
 from .config import cfg_get
 from .convert import cdf_from_numpy, sharpen_state_from_numpy
 from .device import as_tensor, resolve_device
+from .loss import pose_rotation
 from .ops.rotation import rot_from_ypr
-from .solver import SolveResult, descend
+from .ops.sampling import resolve_descent_table
+from .solver import (
+    SolveResult,
+    StepInputs,
+    StepStatics,
+    _packed_table,
+    descend,
+    descend_packed,
+)
 
 __all__ = [
     "TrackResult",
@@ -183,26 +195,57 @@ def track_step_prepped_fetched(img_u8, xyz, rgb, prev_t, prev_ypr, lo, hi,
 
 
 def track_steps_batched(imgs, xyz, rgb, prev_ts, prev_yprs, lo, hi,
-                        point_mask=None, **kw):
-    """K streams' tracked frames against one room: :func:`track_step_fetched`
-    per stream, in stream order.
+                        point_mask=None, *, num_iter: int = 30,
+                        lr: float = 0.03, patience: int = 3,
+                        factor: float = 0.5, table_dtype: str = "auto",
+                        wrap: bool = False, exec_cache_dir=None,
+                        device="cuda", _eager: bool = False):
+    """K streams' tracked frames against one room as ONE descent: the JAX
+    package's ``vmap`` of the tracked step (``_track_batch``), written as K
+    starts on K stacked tables.
 
-    The JAX package runs the K descents as one vmapped program, and
-    measured it slower than K single steps on its own chip; the port loops,
-    as ``pipeline.localize_query_batch`` does, so each stream's answer
-    equals its own :func:`track_step` bit for bit.
+    Each frame's packed table is stacked into one (K * rows, 12) table and
+    start k samples its own through a row offset
+    (``ops.sampling.bilinear_sample_packed``); the cloud, mask and box are
+    shared.  On the card the K-start descent is one captured graph (K = 1
+    shares :func:`track_step`'s), and the K results come back in ONE packed
+    (K, 16) copy.  Every stream's loss depends only on its own pose and
+    table, so a stream's answer is its own :func:`track_step`'s up to the
+    order in which a batch-shaped reduction adds the same terms.
 
     Args:
-      imgs: (K, H, W, 3) float frames in [0, 1].
+      imgs: (K, H, W, 3) float frames in [0, 1], one per stream, one shape.
       prev_ts / prev_yprs: (K, 3) warm-start poses.
       Everything else: as :func:`track_step` (shared across streams).
     Returns:
       a list of K ``(t (3,), ypr (3,), rot (3, 3), loss)`` host tuples.
     """
-    prev_ts = np.asarray(prev_ts, np.float32).reshape(-1, 3)
-    prev_yprs = np.asarray(prev_yprs, np.float32).reshape(-1, 3)
-    return [track_step_fetched(img, xyz, rgb, t, y, lo, hi, point_mask, **kw)
-            for img, t, y in zip(imgs, prev_ts, prev_yprs)]
+    _no_exec_cache(exec_cache_dir)
+    dev = resolve_device(device)
+    imgs = as_tensor(imgs, dev, torch.float32)
+    K, H, W, _ = imgs.shape
+    dtype = resolve_descent_table(table_dtype, H, W)
+    blocks = torch.cat([_packed_table(img, dtype, wrap) for img in imgs])
+    offset = None
+    if K > 1:
+        offset = (torch.arange(K, dtype=torch.int32, device=dev)
+                  * ((H + 1) * (W + 1)))[:, None]
+    x = StepInputs(blocks, as_tensor(xyz, dev, torch.float32),
+                   as_tensor(rgb, dev, torch.float32),
+                   None if point_mask is None
+                   else as_tensor(point_mask, dev, torch.bool),
+                   as_tensor(lo, dev, torch.float32),
+                   as_tensor(hi, dev, torch.float32), offset)
+    s = StepStatics(H, W, int(patience), float(factor), bool(wrap))
+    params, losses, _, _ = descend_packed(
+        x, s, as_tensor(np.asarray(prev_ts, np.float32).reshape(-1, 3), dev),
+        as_tensor(np.asarray(prev_yprs, np.float32).reshape(-1, 3), dev),
+        num_iter, lr, _eager=_eager)
+    ypr = params.ypr()
+    flat = torch.cat([params.t, ypr, pose_rotation(params).reshape(K, 9),
+                      losses[:, None]], 1).cpu().numpy()
+    return [(f[0:3], f[3:6], f[6:15].reshape(3, 3), float(f[15]))
+            for f in flat]
 
 
 def track_kwargs(cfg) -> dict:

@@ -12,9 +12,12 @@ loads. Both rooms go into the JAX package's ``LocalizeService`` and into the
 port's (``device="cpu"``) under ``configs/stanford.ini`` (plus
 ``--override``), and every query asks ``room = "auto"``: in the default mode
 (a full query per room) and with ``room_auto_probe = True`` (a probe per
-room first). One JSON line per (package, mode, query): the room picked, the
-room scores, the order of the scores and the winner's t_err. ``--out``
-also writes all lines to a file.
+room first). ``--modes batched --override sharpen_color=False`` records
+the one-program probe over both rooms (``probe.probe_rooms``; under colour
+prep both packages fall back to the per-room probe). One JSON line per
+(package, mode, query): the room picked, the room scores (a full query's
+loss, or the probe's for a room the probe ruled out), the order of the
+scores and the winner's t_err. ``--out`` also writes all lines to a file.
 
 The JAX package compiles for the CPU here: run it with
 ``JAX_PLATFORMS=cpu``. A full query at this size takes tens of seconds on
@@ -60,7 +63,8 @@ def main(argv=None) -> None:
     ap.add_argument("--queries", type=int, default=1,
                     help="panoramas written per room")
     ap.add_argument("--modes", default="False,True",
-                    help="room_auto_probe values, comma-separated")
+                    help="room_auto_probe values, comma-separated: False, "
+                    "True or batched")
     ap.add_argument("--packages", default="jax,torch")
     ap.add_argument("--override", default="",
                     help="config overrides on top of configs/stanford.ini")

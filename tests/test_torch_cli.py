@@ -8,6 +8,8 @@ the JAX package's on a synthetic Stanford tree from
     0.1, and at lr 0.01 past ~20 iterations.  So the comparison runs 20
     iterations, and at the configuration's lr 0.1 the port's own accuracy
     must be 1.0.
+  * The shipped ``configs/stanford_parallel.ini`` (pitch and roll in the
+    starts) runs through both CLIs with the same winners, as above.
   * The forced compact and q8 slab plans agree with the auto run (the
     gather engine on the CPU) within 1e-3 m.
   * ``write_synth_stanford`` writes the script's tree.
@@ -136,6 +138,29 @@ def test_port_cli_modes_match_jax_cli(synth_root, mode, tmp_path):
     th, trows = _rows(tlog)
     assert th == jh
     assert [r[:5] for r in trows] == [r[:5] for r in jrows]
+    for tr, jr in zip(trows, jrows):
+        assert np.abs(_winner(tr) - _winner(jr)).max() < 1e-3, (tr, jr)
+
+
+def test_stanford_parallel_cli_matches_jax_cli(synth_root, tmp_path):
+    """The shipped configs/stanford_parallel.ini, the one config whose
+    starts carry pitch and roll (4 x 4 x 4 rotations, sample_rate 6),
+    through both CLIs: the same rows, and the winners within 1e-3 m at lr
+    0.01 and 20 iterations."""
+    from piccolo_tpu.main import main as jmain
+
+    cfg = os.path.join(os.path.dirname(os.path.dirname(__file__)), "configs",
+                       "stanford_parallel.ini")
+    jlog, tlog = str(tmp_path / "jax"), str(tmp_path / "port")
+    ov = f"data_root={synth_root},lr=0.01,num_iter=20"
+    jmain(["--config", cfg, "--log", jlog, "--no-tensorboard",
+           "--override", ov])
+    _port(cfg, tlog, ov)
+    jh, jrows = _rows(jlog)
+    th, trows = _rows(tlog)
+    assert th == jh
+    assert [r[:5] for r in trows] == [r[:5] for r in jrows]
+    assert len(trows) == 2 and all(r[4] == "0" for r in trows)
     for tr, jr in zip(trows, jrows):
         assert np.abs(_winner(tr) - _winner(jr)).max() < 1e-3, (tr, jr)
 

@@ -11,6 +11,10 @@ layouts are also held on hand-built edge plans, fused and unfused.  The
 device colour functions run through the histogram kernels and their plain
 versions, and one served request equals the harness's fused query.  The two
 tests of launches on a card that is not the current one need two cards.
+The descent's captured graph equals the eager loop bit for bit (default,
+prune, multires, trajectory), its results are clones that later replays
+leave alone, and pruned survivors and batched tracking streams stay within
+5e-3 and 1e-3 of their unbatched descents.
 """
 
 import dataclasses
@@ -360,3 +364,257 @@ def test_served_request_equals_run_fused(dev):
     np.testing.assert_array_equal(out["t"], res.t.cpu().numpy())
     assert out["loss"] == float(res.loss)
     assert np.linalg.norm(out["t"] - np.float32([0.4, -0.2, 0.15])) < 0.2
+
+
+@pytest.fixture
+def descent_scene(dev):
+    """A room on the card, a 128x256 query and 6 starts near its pose."""
+    from piccolo_tpu_torch.harness.localize import _order_bounds, _pad_cloud
+
+    rng = np.random.default_rng(5)
+    xyz, rgb = make_room(rng, n_per_wall=1500, texture="checker")
+    xyz_d, rgb_d, mask_d = _pad_cloud(xyz, rgb, dev)
+    lo, hi = (torch.tensor(b, device=dev) for b in _order_bounds(xyz, 0.05))
+    img = render_at(xyz, rgb, np.float32([0.4, -0.2, 0.15]),
+                    np.float32([0.9, 0, 0]), (128, 256), device=dev)
+    t0 = torch.tensor(np.float32([0.4, -0.2, 0.15])
+                      + rng.uniform(-0.3, 0.3, (6, 3)).astype(np.float32),
+                      device=dev)
+    y0 = torch.zeros((6, 3), device=dev)
+    y0[:, 0] = torch.tensor(0.9 + rng.uniform(-0.4, 0.4, 6), device=dev)
+    return img, xyz_d, rgb_d, mask_d, lo, hi, t0, y0
+
+
+def _descend(scene, eager, **kw):
+    from piccolo_tpu_torch.solver import descend_starts
+
+    img, xyz, rgb, mask, lo, hi, t0, y0 = scene
+    return descend_starts(img, xyz, rgb, t0, y0, lo, hi, mask, 60, 0.1, 5,
+                          0.8, "float32", trajectory=kw.pop("trajectory",
+                                                            False),
+                          _eager=eager, **kw)
+
+
+@pytest.mark.parametrize("mode", ["default", "prune", "multires",
+                                  "trajectory"])
+def test_graph_equals_eager(descent_scene, mode):
+    """The captured step replayed equals the eager loop on the card bit for
+    bit: final poses, losses and learning rates (and every trajectory
+    step)."""
+    from piccolo_tpu_torch import solver
+
+    kw = {"default": {}, "prune": dict(prune=(20, 2)),
+          "multires": dict(multires=(30, 2)),
+          "trajectory": dict(trajectory=True)}[mode]
+    got = _descend(descent_scene, False, **dict(kw))
+    want = _descend(descent_scene, True, **dict(kw))
+    torch.cuda.synchronize()
+    for a, b in zip(got[0].leaves(), want[0].leaves()):
+        assert torch.equal(a, b)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    if mode == "trajectory":
+        for a, b in zip(got[3].leaves(), want[3].leaves()):
+            assert a.shape[:2] == (6, 60) and torch.equal(a, b)
+    stats = solver.graph_stats()["graphs"]
+    assert stats and all(s["pool_bytes"] > 0 and s["capture_s"] > 0
+                         and s["replays"] > 0 for s in stats)
+
+
+def test_concurrent_misses_capture_once(descent_scene):
+    """Four threads missing one key at once capture it once, and each gets
+    the eager loop's bits."""
+    import threading
+
+    from piccolo_tpu_torch import solver
+
+    img, xyz, rgb, mask, lo, hi, t0, y0 = descent_scene
+    scene = (img, xyz, rgb, mask, lo, hi, t0[:5], y0[:5])  # a new key
+    want = _descend(scene, True)
+    before = solver.graph_stats()["captures"]
+    outs, gate = [None] * 4, threading.Barrier(4)
+
+    def go(i):
+        gate.wait()
+        outs[i] = _descend(scene, False)
+        torch.cuda.current_stream().synchronize()
+
+    threads = [threading.Thread(target=go, args=(i,)) for i in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(300)
+    assert solver.graph_stats()["captures"] == before + 1
+    for got in outs:
+        assert torch.equal(got[0].t, want[0].t)
+        assert torch.equal(got[1], want[1])
+
+
+def test_eviction_and_recapture(descent_scene, monkeypatch):
+    """With no room for graphs, each new key evicts the last one; a key
+    captured again is counted as a recapture and still gives the eager
+    loop's bits."""
+    from piccolo_tpu_torch import solver
+
+    monkeypatch.setattr(solver, "GRAPH_MEM_FRACTION", 0.0)
+    img, xyz, rgb, mask, lo, hi, t0, y0 = descent_scene
+    # 7 and 8 starts: keys no other test captures
+    a = (img, xyz, rgb, mask, lo, hi, torch.cat([t0, t0[:1]]),
+         torch.cat([y0, y0[:1]]))
+    b = (img, xyz, rgb, mask, lo, hi, torch.cat([t0, t0[:2]]),
+         torch.cat([y0, y0[:2]]))
+    _descend(a, False)
+    assert len(solver.graph_stats()["graphs"]) == 1
+    c0 = solver.graph_stats()
+    _descend(b, False)  # evicts a's graph
+    c1 = solver.graph_stats()
+    got = _descend(a, False)
+    c2 = solver.graph_stats()
+    assert len(c1["graphs"]) == 1 and len(c2["graphs"]) == 1
+    assert c1["evictions"] == c0["evictions"] + 1
+    assert c2["evictions"] == c1["evictions"] + 1
+    assert c2["captures"] == c1["captures"] + 1
+    assert c2["recaptures"] == c1["recaptures"] + 1
+    want = _descend(a, True)
+    assert torch.equal(got[0].t, want[0].t) and torch.equal(got[1], want[1])
+
+
+def test_pruned_survivors_near_unpruned(descent_scene):
+    """Prune on the card: each survivor finishes within 5e-3 m and 5e-3 rad
+    of the same start's unpruned descent, and every pruned row reports its
+    phase-1 state.  On the CPU a survivor ends bit for bit where it would
+    unpruned; on the card its second phase runs a batch of 2, whose
+    reductions add in another order, and 40 steps at lr 0.1 carry that to
+    1.6e-3 here (an H100)."""
+    from piccolo_tpu_torch.solver import descend_starts
+
+    img, xyz, rgb, mask, lo, hi, t0, y0 = descent_scene
+    full = _descend(descent_scene, False)
+    pruned = _descend(descent_scene, False, prune=(20, 2))
+    head = descend_starts(img, xyz, rgb, t0, y0, lo, hi, mask, 20, 0.1, 5,
+                          0.8, "float32")
+    keep = torch.argsort(head[1], stable=True)[:2].tolist()
+    for k in range(6):
+        a = torch.cat([pruned[0].t[k], pruned[0].ypr()[k]])
+        src = full if k in keep else head
+        b = torch.cat([src[0].t[k], src[0].ypr()[k]])
+        if k in keep:
+            d = float((a - b).abs().max())
+            assert d < 5e-3, (k, d, a, b)
+        else:
+            assert torch.equal(a, b)
+
+
+def test_returned_tensors_survive_later_replays(descent_scene):
+    """Results are clones: a second descent of another shape, then the first
+    shape again on other starts, leave the first call's tensors as they
+    were."""
+    first = _descend(descent_scene, False)
+    kept = [x.clone() for x in (*first[0].leaves(), first[1], first[2])]
+    img, xyz, rgb, mask, lo, hi, t0, y0 = descent_scene
+    _descend((img, xyz, rgb, mask, lo, hi, t0[:3], y0[:3]), False)
+    _descend((img, xyz, rgb, mask, lo, hi, t0 + 0.05, y0), False)
+    torch.cuda.synchronize()
+    for a, b in zip((*first[0].leaves(), first[1], first[2]), kept):
+        assert torch.equal(a, b)
+
+
+def _tracked_frames(scene):
+    """Four frames of the scene's room 3 cm apart, yaw 0.9 + 0.02 k, and
+    their poses."""
+    img, xyz, rgb, mask = scene[:4]
+    steps = np.float32([[0.0, 0.0, 0.0], [0.03, -0.02, 0.0],
+                        [0.06, -0.03, 0.01], [0.09, -0.02, 0.0]])
+    gt = np.float32([0.4, -0.2, 0.15]) + steps
+    xyz_h, rgb_h = xyz.cpu().numpy(), rgb.cpu().numpy()
+    keep = mask.cpu().numpy()
+    imgs = torch.stack([render_at(xyz_h[keep], rgb_h[keep], t,
+                                  np.float32([0.9 + 0.02 * i, 0, 0]),
+                                  (128, 256), device=img.device)
+                        for i, t in enumerate(gt)])
+    return imgs, gt
+
+
+def test_track_steps_batched_on_the_card(descent_scene):
+    """K = 4 streams of tracked frames (3 cm steps) in one graphed descent:
+    K = 1 equals track_step bit for bit, and each stream of the batch its
+    own track_step within 1e-3 m and 1e-3 rad (the batch's backward adds a
+    stream's gradient terms in another order)."""
+    from piccolo_tpu_torch import tracking as T
+
+    img, xyz, rgb, mask, lo, hi, _, _ = descent_scene
+    imgs, gt = _tracked_frames(descent_scene)
+    ts = gt + np.float32([0.03, -0.02, 0.01])
+    ys = np.float32([[0.93 + 0.02 * i, 0, 0] for i in range(4)])
+    batch = T.track_steps_batched(imgs, xyz, rgb, ts, ys, lo, hi, mask,
+                                  device=img.device)
+    for k in range(4):
+        one = T.track_step_fetched(imgs[k], xyz, rgb, ts[k], ys[k], lo, hi,
+                                   mask, device=img.device)
+        solo = T.track_steps_batched(imgs[k:k + 1], xyz, rgb, ts[k:k + 1],
+                                     ys[k:k + 1], lo, hi, mask,
+                                     device=img.device)[0]
+        for a, b in zip(solo[:3], one[:3]):
+            np.testing.assert_array_equal(a, b)
+        for a, b in zip(batch[k][:2], one[:2]):
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-3)
+        assert np.linalg.norm(batch[k][0] - gt[k]) < 0.05
+
+
+def test_track_batch_gap_is_reduction_order(descent_scene):
+    """The witness for the bounds on batched streams: in a K = 4 batch of
+    frames that descend far apart (the scene's frame, rolled, flipped, and
+    flipped and rolled, from starts up to 0.3 m off), each stream ends bit
+    for bit where it ends in a K = 4 batch of four copies of itself, and
+    the copies agree with each other.  So a stream reads only its own
+    frame, start and table rows, and what moves it from its single step is
+    the batch's shape: the order in which a K-row reduction adds."""
+    from piccolo_tpu_torch import tracking as T
+
+    img, xyz, rgb, mask, lo, hi, t0, y0 = descent_scene
+    t, y = t0.cpu().numpy()[:4], y0.cpu().numpy()[:4]
+    imgs = torch.stack([img, img.roll(64, 1), img.flip(1),
+                        img.flip(1).roll(-32, 1)])
+    batch = T.track_steps_batched(imgs, xyz, rgb, t, y, lo, hi, mask,
+                                  device=img.device)
+    gaps = []
+    for k in range(4):
+        copies = T.track_steps_batched(
+            imgs[k:k + 1].repeat(4, 1, 1, 1), xyz, rgb,
+            np.repeat(t[k:k + 1], 4, 0), np.repeat(y[k:k + 1], 4, 0), lo,
+            hi, mask, device=img.device)
+        for c in copies:
+            for a, b in zip(c[:3], batch[k][:3]):
+                np.testing.assert_array_equal(a, b)
+        one = T.track_step_fetched(imgs[k], xyz, rgb, t[k], y[k], lo, hi,
+                                   mask, device=img.device)
+        gaps.append(max(float(np.abs(a - b).max())
+                        for a, b in zip(batch[k][:2], one[:2])))
+    print(f"flipped and rolled frames, streams from their single steps: "
+          f"{[f'{g:.3g}' for g in gaps]}")
+
+
+def test_track_steps_batched_far_starts(descent_scene):
+    """K = 4 tracked frames (3 cm apart) from starts up to 0.3 m and 0.4
+    rad off: each stream ends within 1e-2 m and 1e-2 rad of its own
+    track_step.  The gap is the batch's reduction order (the witness
+    above), carried further by 30 steps at lr 0.1 from far starts than
+    from 3 cm (PERF.md, section 6, has the readings)."""
+    from piccolo_tpu_torch import tracking as T
+
+    img, xyz, rgb, mask, lo, hi, t0, y0 = descent_scene
+    imgs, gt = _tracked_frames(descent_scene)
+    off = t0.cpu().numpy()[:4] - np.float32([0.4, -0.2, 0.15])
+    ts = gt + off
+    ys = y0.cpu().numpy()[:4] + np.float32([[0.02 * i, 0, 0]
+                                            for i in range(4)])
+    batch = T.track_steps_batched(imgs, xyz, rgb, ts, ys, lo, hi, mask,
+                                  device=img.device)
+    gaps = []
+    for k in range(4):
+        one = T.track_step_fetched(imgs[k], xyz, rgb, ts[k], ys[k], lo, hi,
+                                   mask, device=img.device)
+        gaps.append(max(float(np.abs(a - b).max())
+                        for a, b in zip(batch[k][:2], one[:2])))
+    print(f"far starts, streams from their single steps: "
+          f"{[f'{g:.3g}' for g in gaps]}")
+    assert max(gaps) <= 1e-2

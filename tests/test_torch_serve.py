@@ -11,16 +11,18 @@ on the CPU.
     and 503 beyond ``max_pending``; the payload trust model; the LRU and
     the plan budget of resident rooms.
   * ``room = "auto"`` picks the query's own room in the default, probe and
-    batched modes (the last runs the per-room probe); the per-room probe
-    ranks rooms as the JAX package's does.
+    batched modes (the last one probe over every room, the per-room probe
+    under colour prep); the per-room probe ranks rooms as the JAX
+    package's does.
   * Tracked requests (``prev_pose``), ``recover_above``, and ``track_batch``
-    accepted with no effect.
+    draining concurrent tracked requests into one batch.
   * The configs serving refuses, naming their slice where one is planned.
 """
 
 import base64
 import json
 import threading
+import warnings
 import urllib.error
 import urllib.request
 
@@ -243,8 +245,9 @@ def test_room_auto_picks_the_query_room(scene, plain_room, mode,
     svc = _svc(max_rooms=3, room_auto_probe=mode, room_auto_margin=1.0)
     svc.load_room(*plain_room, name="plain")
     svc.load_room(xyz, rgb, name="checker")
-    full, probes = [], []
+    full, probes, batched = [], [], []
     real_full, real_probe = svc._compute_room, svc._probe_room
+    real_batched = svc._probe_state_batched
 
     def count_full(prep, cache, device_index):
         full.append(cache)
@@ -254,8 +257,13 @@ def test_room_auto_picks_the_query_room(scene, plain_room, mode,
         probes.append(cache)
         return real_probe(prep, cache, device_index)
 
+    def count_batched(device_index):
+        batched.append(device_index)
+        return real_batched(device_index)
+
     monkeypatch.setattr(svc, "_compute_room", count_full)
     monkeypatch.setattr(svc, "_probe_room", count_probe)
+    monkeypatch.setattr(svc, "_probe_state_batched", count_batched)
     out = svc.localize(img, room="auto")
     assert out["room"] == "checker"
     assert set(out["room_scores"]) == {"plain", "checker"}
@@ -263,27 +271,65 @@ def test_room_auto_picks_the_query_room(scene, plain_room, mode,
     assert np.linalg.norm(out["t"] - gt_t) < 0.2
     assert out["room_scores"]["checker"] == out["loss"]
     if mode is False:
-        assert len(full) == 2 and probes == []
-    else:  # a probe per room rules the plain room out: one full query
+        assert len(full) == 2 and probes == [] and batched == []
+    else:  # the probe rules the plain room out: one full query
         assert full == [svc._rooms["checker"][0]]
-        assert len(probes) == 2
+        # True: a probe per room; "batched": one probe over both rooms
+        assert (len(probes), len(batched)) == ((2, 0) if mode is True
+                                               else (0, 1))
     assert "room_scores" not in svc.localize(img, room="checker")
 
 
 def test_batched_probe_mode_is_the_per_room_probe(scene, plain_room):
-    """room_auto_probe = "batched" answers as room_auto_probe = True does,
-    bit for bit, under colour prep too (the JAX package falls back to the
-    per-room probe there)."""
+    """room_auto_probe = "batched" is the per-room probe, bit for bit, only
+    where the JAX package makes it so: under colour prep, with a one-time
+    warning.  Without colour prep it is the one-program probe: one
+    ``probe.probe_rooms`` over both rooms, whose losses are the room scores
+    of the rooms it rules out, and the same pick as the per-room probe."""
+    from piccolo_tpu_torch.probe import probe_rooms
+
     xyz, rgb, img, _ = scene
     outs = []
     for mode in (True, "batched"):
         svc = _svc(max_rooms=2, room_auto_probe=mode, match_color=True)
         svc.load_room(*plain_room, name="plain")
         svc.load_room(xyz, rgb, name="checker")
-        outs.append(svc.localize(img, room="auto"))
+        if mode == "batched":
+            with pytest.warns(UserWarning, match="per-room probe"):
+                outs.append(svc.localize(img, room="auto"))
+            with warnings.catch_warnings():
+                warnings.simplefilter("error")  # warned once only
+                svc.localize(img, room="auto")
+        else:
+            outs.append(svc.localize(img, room="auto"))
     assert outs[0]["room"] == outs[1]["room"] == "checker"
     assert outs[0]["room_scores"] == outs[1]["room_scores"]
     np.testing.assert_array_equal(outs[0]["t"], outs[1]["t"])
+
+    svc = _svc(max_rooms=2, room_auto_probe="batched", room_auto_margin=1.0)
+    svc.load_room(*plain_room, name="plain")
+    svc.load_room(xyz, rgb, name="checker")
+    calls = []
+    real = probe_rooms
+
+    def count(*a, **kw):
+        calls.append(a[1].shape)
+        return real(*a, **kw)
+
+    import piccolo_tpu_torch.probe as probe_mod
+
+    probe_mod.probe_rooms = count
+    try:
+        out = svc.localize(img, room="auto")
+    finally:
+        probe_mod.probe_rooms = real
+    st = svc._probe_state_batched(0)
+    assert calls == [st.xyz.shape] and st.names == ("plain", "checker")
+    want = st.losses(svc._prepare(img, svc._rooms["plain"][0])[0],
+                     **svc._probe_kwargs())
+    assert out["room"] == "checker"
+    assert out["room_scores"]["plain"] == float(want[0])
+    assert out["room_scores"]["checker"] == out["loss"]
 
 
 def test_room_probe_ranks_like_jax(scene, plain_room):
@@ -342,14 +388,75 @@ def test_tracking_path(scene):
     with pytest.raises(ValueError, match="non-finite"):
         svc.localize(img1, prev_pose={"t": [np.nan, 0, 0], "ypr": [0, 0, 0]})
 
-    # track_batch is accepted and changes nothing: each tracked request
-    # runs on its own and answers as without it
+    # track_batch: a tracked request with nothing queued beside it runs on
+    # its own and answers as without it
     batched = _svc(track_batch=True, track_max_batch=4)
     batched.load_room(xyz, rgb, name="box")
     got = batched.localize(img1, prev_pose=prev)
     assert "batched" not in got
     for k in ("t", "rot", "ypr", "cand_loss"):
         np.testing.assert_array_equal(got[k], out1[k])
+
+
+def test_track_batch_drains_concurrent_requests(scene):
+    """Three tracked requests queued while the device is held are drained
+    as ONE batch by the first to take the compute lock (padded to 4 by
+    repeating the last stream): each answer carries ``"batched": 3``,
+    equals ``track_steps_batched`` on the same frames bit for bit, and
+    equals its own single request within 1e-4 m, 1e-4 rad and a relative
+    1e-4 of the loss (the batch's backward adds a stream's gradient terms
+    in another order: test_torch_tracking.py)."""
+    from piccolo_tpu_torch.tracking import track_steps_batched, ypr_from_rot
+
+    xyz, rgb, img, gt_t = scene
+    svc = _svc(track_batch=True, track_max_batch=4)
+    svc.load_room(xyz, rgb, name="box")
+    out0 = svc.localize(img)
+    prev = {"t": out0["t"].tolist(), "ypr": ypr_from_rot(out0["rot"]).tolist()}
+    steps = [np.float32([0.03, -0.02, 0.01]), np.float32([-0.02, 0.03, 0.0]),
+             np.float32([0.01, 0.01, -0.02])]
+    frames = [render_at(xyz, rgb, gt_t + d, np.float32([0.92, 0, 0]),
+                        (128, 256), device="cpu").numpy() for d in steps]
+    frames = [(f * 255).astype(np.uint8) for f in frames]
+    outs = [None] * 3
+    lock = svc._compute_locks[0]
+    lock.acquire()
+    try:
+        threads = [threading.Thread(
+            target=lambda i=i: outs.__setitem__(
+                i, svc.localize(frames[i], prev_pose=prev)))
+            for i in range(3)]
+        for th in threads:
+            th.start()
+        for _ in range(600):
+            if len(svc._track_queues[0]) == 3:
+                break
+            threading.Event().wait(0.05)
+        assert len(svc._track_queues[0]) == 3
+    finally:
+        lock.release()
+    for th in threads:
+        th.join(300)
+    assert [o["batched"] for o in outs] == [3, 3, 3]
+    cache = svc._rooms["box"][0]
+    mains = [svc._prepare(f, cache)[1] for f in frames]
+    t0, y0 = svc._parse_prev_pose(prev)
+    want = track_steps_batched(
+        np.stack(mains + mains[-1:]), cache["xyz"], cache["rgb"],
+        np.stack([t0] * 4), np.stack([y0] * 4), cache["lo"], cache["hi"],
+        cache["mask"], **svc._track_kw())
+    single = _svc()
+    single.load_room(xyz, rgb, name="box")
+    for out, w, f in zip(outs, want, frames):
+        np.testing.assert_array_equal(out["t"], w[0])
+        np.testing.assert_array_equal(out["ypr"], w[1])
+        assert out["loss"] == w[3]
+        one = single.localize(f, prev_pose=prev)
+        assert "batched" not in one
+        np.testing.assert_allclose(out["t"], one["t"], rtol=0, atol=1e-4)
+        np.testing.assert_allclose(out["ypr"], one["ypr"], rtol=0, atol=1e-4)
+        assert abs(out["loss"] - one["loss"]) <= 1e-4 * abs(one["loss"])
+    assert not svc._track_queues[0]
 
 
 @pytest.mark.parametrize("kw,err,match", [
