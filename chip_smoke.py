@@ -122,6 +122,35 @@ Phases (any failure exits non-zero; each prints its seconds):
      each stream's own track_step, and each batch's wall and device ms
      against K single steps; each stream of the K = 4 batch bit-equal to
      a K = 4 batch of four copies of itself.
+ 24. the mesh (after phase 11), on phase 3's room over make_mesh(2, 2) of
+     the visible cards (four distinct cards when four are visible, every
+     shard on cuda:0 when one is; each shard's card printed): the sharded
+     query on every stage-1 route (f32, compact and q8 sharded plans, the
+     gather engine) and both stage-2 routes (sharded HistPlan, live
+     splat) against the single-device query at MESH_KW: equal starts (a
+     differing start is accepted only as a stage-1 tie within
+     MESH_TIE_REL, its scores printed), equal winners, cand_loss within
+     MESH_LOSS_BOUND; at the full budget t_err under 0.05 m and the graphed
+     descent bit-equal to the eager one; every kernel's launches on every
+     card of the mesh; each kernel of the path against its plain version
+     on each shard's own card at the shard's shapes (the group sums on
+     every group of every shard's plan in all three layouts, the block
+     histogram on the stage-2 calls the mesh queries made on each cand
+     group's lead card), one kernels row per kernel with its launches and
+     errors by card; 10 sharded and 10 single-device queries in turns,
+     s/query p50 and p90;
+ 25. with two or more cards (after phase 21): configs/stanford.ini through
+     the CLI with n_devices=all against one card (the route names the mesh,
+     the same accuracy); LocalizeService on one card, with n_devices=all
+     and with query_devices=all: 10 requests each bit-equal to _run_fused
+     on its card, total_s p50/p90, requests/s from 4 concurrent clients,
+     each client thread's host CPU seconds and each card's compute
+     seconds under its lock;
+ 26. with two or more cards (last): scripts/measure_stretch.py's room
+     (1.02 M points, 4096x2048) on one card and over the meshes (1, n),
+     (2, n / 2) and (n, 1): each card's plan bytes before the build,
+     s/query, t_err, peak memory by card.
+On one card phases 25 and 26 print that they need two cards.
 Every descent above runs its captured graph (solver.py), and every
 profiled query reports its kernel and graph launches.  Then one line of
 the profiles' summaries, one line of every graph captured (its shapes,
@@ -171,6 +200,24 @@ BATCH_BOUND = 1e-3
 # lr 0.1 carry that to 8.9e-3 on the library query (PERF.md, §6); the
 # bound asks for the same basin, far inside the 0.2 m criterion
 PRUNE_BOUND = 2e-2
+# the mesh (phases 24-26): the JAX tests' settings for comparing a sharded
+# query with one device's (tests/test_parallel.py:154-197: 12 -> 4 starts,
+# 5 iterations) at lr 0.01, not their 0.1: on one H100 at lr 0.1 the f32 +
+# HistPlan route gave equal starts and winner but cand_loss 8.4e-3 apart
+# (PERF.md, section 6): Adam's first step moves each coordinate by lr
+# times the sign of its gradient, and where a gradient is near 0 the sums'
+# order sets that sign; and the one tie a differing start may be: a
+# stage-1 pair that moved across the k1-th score by at most MESH_TIE_REL of
+# it.  Two orders of summing n = 65,536 non-negative f32 terms give sums
+# within 2 (n - 1) u of their magnitude (u = 2**-24), and the mean divides
+# both by the same exact count
+MESH_KW = dict(num_intermediate=12, num_input=4, num_iter=5, lr=0.01,
+               patience=5, factor=0.8)
+MESH_TIE_REL = 2 * 65536 * 2.0 ** -24
+MESH_LOSS_BOUND = 1e-3  # cand_loss, mesh against one device (JAX's test)
+MESH_QUERIES = 10
+STRETCH_QUERIES = 3
+MESH_ALL = "all"  # n_devices and query_devices in phases 25 and 26
 # ~20 ms of sleep kernel: a tracked batch's 30 replays and table packing
 # are enqueued behind it
 BATCH_LEAD_CYCLES = 40_000_000
@@ -937,6 +984,7 @@ def profile_query(label, run, median_s):
     raw = prof.profiler.kineto_results.events()
     stage_of, stage_of_call = cpu_op_stages(raw)
     stages, by_kernel, busy_us, n_ops = {}, {}, 0.0, 0
+    by_card = {}  # device busy us by card
     n_launch = n_graph = 0
     graph_host_us = 0.0
     windows = {}  # stage -> (first start, last end) of its device work, ns
@@ -953,6 +1001,7 @@ def profile_query(label, run, median_s):
             continue
         us = e.duration_ns() / 1e3
         busy_us += us
+        add(by_card, e.device_index(), us)
         n_ops += 1
         first = min(first, e.start_ns())
         last = max(last, e.start_ns() + e.duration_ns())
@@ -967,6 +1016,8 @@ def profile_query(label, run, median_s):
             lo_, hi_ = windows.get(stage, (math.inf, 0))
             windows[stage] = (min(lo_, e.start_ns()),
                               max(hi_, e.start_ns() + e.duration_ns()))
+    # a mesh's cards work side by side: idle shares are the busiest card's
+    busy_card_us = max(by_card.values(), default=0.0)
     if busy_us > sum(stages.values()):
         stages["outside the stage spans"] = busy_us - sum(stages.values())
     log(f"{label} profiled query: wall {wall_us / 1e3:.1f} ms under the "
@@ -977,20 +1028,25 @@ def profile_query(label, run, median_s):
                          kernel_launches=n_launch, graph_launches=n_graph,
                          graph_launch_host_ms=graph_host_us / 1e3,
                          busy_ms=busy_us / 1e3, profiled_wall_ms=wall_us / 1e3,
+                         busy_ms_by_card={k: v / 1e3
+                                          for k, v in sorted(by_card.items())},
                          median_s=median_s,
                          device_window_ms=(last - first) / 1e6
                          if n_ops else None,
-                         idle_share=(1 - busy_us / (median_s * 1e6))
+                         idle_share=(1 - busy_card_us / (median_s * 1e6))
                          if busy_us else None))
     if busy_us == 0:
         log(f"{label} profile: torch.profiler recorded no device time (not "
             "measured)")
         return {}
+    if len(by_card) > 1:
+        log(f"{label} profile: device busy by card (ms) "
+            f"{ {k: round(v / 1e3, 2) for k, v in sorted(by_card.items())} }")
     log(f"{label} profile: device busy {busy_us / 1e3:.2f} ms in a window of "
         f"{(last - first) / 1e6:.2f} ms from the first kernel's start to the "
-        f"last's end; idle share "
-        f"{1 - busy_us / wall_us:.3f} of the profiled query, "
-        f"{1 - busy_us / (median_s * 1e6):.3f} of the unprofiled median")
+        f"last's end; idle share (of the busiest card) "
+        f"{1 - busy_card_us / wall_us:.3f} of the profiled query, "
+        f"{1 - busy_card_us / (median_s * 1e6):.3f} of the unprofiled median")
     for name, us in sorted(stages.items(), key=lambda kv: -kv[1]):
         w = windows.get(name)
         log(f"{label} profile stage {name}: device {us / 1e3:.2f} ms"
@@ -2518,6 +2574,634 @@ def phase_omni_batch(o, omni, dev):
     return out
 
 
+MESH_KERNELS = ("slab_group_sums_f32", "slab_group_sums_compact",
+                "slab_group_sums_q8", "block_histogram")
+
+
+def _kernel_fns():
+    from piccolo_tpu_torch.kernels import slab_sampling as slab
+    from piccolo_tpu_torch.kernels.block_histogram import block_histogram
+    from piccolo_tpu_torch.kernels.histogram import masked_histogram_counts
+
+    return {fn.__name__: fn for fn in (
+        slab.slab_group_sums_f32, slab.slab_group_sums_compact,
+        slab.slab_group_sums_q8, block_histogram, masked_histogram_counts)}
+
+
+def _zero_counts():
+    for fn in _kernel_fns().values():
+        fn.launches, fn.by_card = 0, {}
+
+
+def _read_counts():
+    return {k: dict(total=fn.launches, by_card=dict(fn.by_card))
+            for k, fn in _kernel_fns().items()}
+
+
+def _cards():
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def _mesh_2x2():
+    """make_mesh(2, 2) over the visible cards: four distinct cards when
+    four are visible, every shard on cuda:0 when one is."""
+    from piccolo_tpu_torch.parallel import make_mesh
+
+    cards = _cards()
+    mesh = make_mesh(2, 2, devices=[cards[i % len(cards)] for i in range(4)])
+    for (c, p), d in np.ndenumerate(mesh.devices):
+        log(f"mesh shard (cand {c}, point {p}): {d} "
+            f"({torch.cuda.get_device_name(d)})")
+    return mesh
+
+
+def _swap_is_a_tie(s_one, s_mesh, k1):
+    """Whether the pairs that entered or left the top k1 of stage 1 between
+    one device and the mesh lie within MESH_TIE_REL of the k1-th score in
+    both; prints each such pair's two scores."""
+    top_one = set(torch.sort(s_one, stable=True).indices[:k1].tolist())
+    top_mesh = set(torch.sort(s_mesh, stable=True).indices[:k1].tolist())
+    kth = float(torch.sort(s_one).values[k1 - 1])
+    swapped = sorted(top_one ^ top_mesh)
+    for i in swapped:
+        log(f"  stage-1 pair {i}: one device {float(s_one[i])!r}, mesh "
+            f"{float(s_mesh[i])!r}, k1-th score {kth!r}")
+    return bool(swapped) and all(
+        abs(float(s[i]) - kth) <= MESH_TIE_REL * kth
+        for i in swapped for s in (s_one, s_mesh))
+
+
+@contextlib.contextmanager
+def _recording_stage2(calls):
+    """Stage 2's block histogram as the mesh queries call it, with each
+    call's inputs kept (the first of each card and shape): the kernel's
+    wrapper still runs and counts."""
+    from piccolo_tpu_torch.init import refine
+
+    real = refine.block_histogram
+
+    def recorded(ids, mask, num_bins=512):
+        key = (ids.device.index, tuple(ids.shape), num_bins)
+        if key not in calls:
+            calls[key] = (ids.clone(), mask.clone())
+        return real(ids, mask, num_bins)
+
+    refine.block_histogram = recorded
+    try:
+        yield
+    finally:
+        refine.block_histogram = real
+
+
+def _mesh_kernel_rows(mesh, plans_m, img_init, stage2_calls, by_card,
+                      n_queries):
+    """Every kernel of the mesh path against its plain version on each
+    shard's own card, at the shard's shapes: the group sums on every group
+    of every shard's plan in each layout (counts exact, sums within phase
+    kernels' tolerance), and the block histogram on each stage-2 call the
+    mesh queries made on a cand group's lead card (bit-exact).  One row per
+    kernel: its launches over the mesh queries (by card), its largest error
+    (by card), and its times on the mesh's last card."""
+    from piccolo_tpu_torch.kernels import slab_sampling as slab
+    from piccolo_tpu_torch.kernels.block_histogram import (
+        block_histogram,
+        block_histogram_plain,
+    )
+
+    # kernel, plain version, TPU kernel's line, bytes and ~f32 operations a
+    # real sample (phase_kernels, phase_layout_kernels)
+    spec = {
+        "f32": (slab.slab_group_sums_f32, slab.slab_group_sums_f32_plain,
+                677, None, F32_OPS_PER_SAMPLE),
+        "compact": (slab.slab_group_sums_compact,
+                    slab.slab_group_sums_compact_plain, 689, 16, 54),
+        "q8": (slab.slab_group_sums_q8, slab.slab_group_sums_q8_plain, 711,
+               8, 59),
+    }
+    path = f"mesh 2x2 library queries ({n_queries}, phase 24)"
+    rows = []
+    for layout, (kernel, plain, line, per_real, ops_per) in spec.items():
+        err, n_groups = {}, 0
+        for (c, p), dev in np.ndenumerate(mesh.devices):
+            plan = plans_m[layout].plans[c][p]
+            table = slab.slab_table(img_init.to(dev), wrap=plan.wrap,
+                                    window=plan.window)
+            for g in range(len(plan.fields)):
+                args = ((plan.fields[g], plan.windows[g]) if layout == "f32"
+                        else (plan.fields[g], plan.tps[g], plan.windows[g]))
+                got = kernel(table, *args, plan.window)
+                want = plain(table, *args, plan.window)
+                torch.cuda.synchronize(dev)
+                if not torch.equal(got[1], want[1]):
+                    raise AssertionError(
+                        f"mesh {layout} slab kernel counts differ from the "
+                        f"plain version on shard ({c}, {p}), {dev}, group {g}")
+                torch.testing.assert_close(got[0], want[0], rtol=1e-5,
+                                           atol=1e-6)
+                e = float((got[0] - want[0]).abs().max())
+                err[str(dev)] = max(err.get(str(dev), 0.0), e)
+                n_groups += 1
+        f, w = args[0], args[-1]
+        nb, _, _ = f.shape
+        if layout == "f32":
+            samples, pads, _, n_win = _f32_plan_stats(f, w)
+            nbytes, _ = _f32_bytes(samples, pads, nb, n_win, plan.window)
+        else:
+            real = (((f[:, 0] >> 23) & 0x1FF) < plan.window if layout == "q8"
+                    else f[:, 0] >= 0)
+            samples = int(real.sum())
+            n_win = int(torch.unique(w).numel())
+            nbytes = (samples * per_real + nb * 4 + n_win * plan.window * 48
+                      + nb * 4 + 2 * 128 * 4)
+        bound_ms, bound_by = _bound(nbytes, samples * ops_per)
+        with torch.cuda.device(dev):  # the last shard's group, on its card
+            ms = cuda_ms(lambda: kernel(table, *args, plan.window))
+            plain_ms = cuda_ms(lambda: plain(table, *args, plan.window))
+        name = kernel.__name__
+        rows.append(dict(
+            name=f"{name}.mesh", route="cuda",
+            source="piccolo_tpu_torch/kernels/csrc/slab_sampling.cu",
+            replaces=f"piccolo_tpu/kernels/slab_sampling.py:{line}",
+            path=path, launches=sum(by_card.get(name, {}).values()),
+            launches_per_query=sum(by_card.get(name, {}).values()) / n_queries,
+            launches_by_card=by_card.get(name, {}),
+            max_abs_err=max(err.values()), max_abs_err_by_card=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None))
+        log(f"mesh {layout} slab kernel vs plain on all {n_groups} groups of "
+            f"the 4 shards' plans: counts exact, max |sum err| by card {err}; "
+            f"on {dev}, group {g} of shard ({c}, {p}) (nb={nb}, {samples} "
+            f"real samples): {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms")
+    if not {k[0] for k in stage2_calls} >= {d.index for d in mesh.devices[:, 0]}:
+        raise AssertionError(f"stage 2 recorded on cards "
+                             f"{sorted({k[0] for k in stage2_calls})} only")
+    err = {}
+    for (card, shape, nbins), (ids, mask) in sorted(stage2_calls.items()):
+        got = block_histogram(ids, mask, nbins)
+        want = block_histogram_plain(ids, mask, nbins)
+        torch.cuda.synchronize(ids.device)
+        if not torch.equal(got, want):
+            raise AssertionError(f"mesh block histogram differs from the "
+                                 f"plain version on cuda:{card} at {shape}")
+        err[str(ids.device)] = max(err.get(str(ids.device), 0.0),
+                                   float((got - want).abs().max()))
+    (card, shape, nbins), (ids, mask) = max(
+        stage2_calls.items(), key=lambda kv: (kv[0][1][0], kv[0][0]))
+    B = shape[0]
+    flat = (torch.arange(B, device=ids.device)[:, None] * nbins
+            + ids).reshape(-1)
+    bound_ms, bound_by = _bound(ids.numel() * 8 + B * nbins * 4,
+                                ids.numel() * 2)
+    with torch.cuda.device(ids.device):
+        ms = cuda_ms(lambda: block_histogram(ids, mask, nbins))
+        plain_ms = cuda_ms(lambda: block_histogram_plain(ids, mask, nbins))
+        library_ms = cuda_ms(lambda: torch.bincount(
+            flat, weights=mask.reshape(-1), minlength=B * nbins))
+    got = by_card.get("block_histogram", {})
+    rows.append(dict(
+        name="block_histogram.mesh", route="cuda",
+        source="piccolo_tpu_torch/kernels/csrc/block_histogram.cu",
+        replaces="piccolo_tpu/kernels/histogram_mxu.py:90", path=path,
+        launches=sum(got.values()),
+        launches_per_query=sum(got.values()) / n_queries,
+        launches_by_card=got, max_abs_err=max(err.values()),
+        max_abs_err_by_card=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=library_ms))
+    log(f"mesh block histogram vs plain on {len(stage2_calls)} recorded "
+        f"stage-2 calls (card, shape): {sorted(k[:2] for k in stage2_calls)}: "
+        f"bit-exact; on {ids.device} at {shape}: {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bincount {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms")
+    return rows
+
+
+def phase_mesh(room, dev):
+    """The library room over make_mesh(2, 2): (a) the sharded query on
+    every stage-1 route (f32, compact and q8 sharded plans, the gather
+    engine) and both stage-2 routes (sharded HistPlan, live splat) against
+    the single-device query on the same inputs at MESH_KW: equal starts
+    (or a stage-1 tie, MESH_TIE_REL), equal winners, cand_loss within
+    MESH_LOSS_BOUND; (b) the full budget (20 -> 6 starts x 100): t_err
+    under 0.05 m, and the graphed descent bit-equal to the eager one;
+    launches of every kernel on every card over (a) and (b); (c)
+    MESH_QUERIES sharded and single-device queries in turns, s/query p50
+    and p90 of each."""
+    from piccolo_tpu_torch import build_grid_plan, localize_query
+    from piccolo_tpu_torch import parallel as P
+    from piccolo_tpu_torch.kernels.slab_sampling import (
+        make_pairs,
+        slab_pair_scores,
+    )
+    from piccolo_tpu_torch.parallel import fused as F
+    from piccolo_tpu_torch.pipeline import _grid_scores
+
+    r = room
+    mesh = _mesh_2x2()
+    t0 = time.time()
+    layouts = {"f32": {}, "compact": dict(compact=True),
+               "q8": dict(compact=True, quant=True)}
+    plans_m = {k: P.shard_grid_plan(mesh, r["xyz_d"], r["rgb_d"], r["mask_d"],
+                                    r["trans_real"], r["rot"], 256, 512, **kw)
+               for k, kw in layouts.items()}
+    hplan_m = P.shard_hist_plan(mesh, r["hplan"])
+    cloud = P.shard_cloud(mesh, r["xyz_d"], r["rgb_d"], r["mask_d"])
+    torch.cuda.synchronize()
+    log(f"mesh plans built in {time.time() - t0:.2f} s; bytes by card "
+        f"(plan_exact_bytes before the build): "
+        f"{ {k: v.card_bytes for k, v in plans_m.items()} }; HistPlan "
+        f"{hplan_m.nbytes} B in {len(hplan_m.planes)} parts")
+    for k, v in plans_m.items():
+        held = {}
+        for (c, p), d in np.ndenumerate(mesh.devices):
+            held[str(d)] = held.get(str(d), 0) + v.plans[c][p].nbytes
+        if held != v.card_bytes:
+            raise AssertionError(f"{k} sharded plan holds {held}, sized "
+                                 f"{v.card_bytes}")
+    plans_1 = dict(f32=r["plan"], **{
+        k: build_grid_plan(r["xyz_d"], r["rgb_d"], r["mask_d"],
+                           r["trans_real"], r["rot"], 256, 512, device=dev,
+                           **layouts[k]) for k in ("compact", "q8")})
+    routes = [("f32", "HistPlan"), ("compact", "live splat"),
+              ("q8", "live splat"), ("gather engine", "live splat")]
+    def one_query(img_init, img_main, s1, s2, sharded, eager=False, **kw):
+        args = (img_init, img_main)
+        grid = (r["trans"], r["rot"], r["valid"], r["lo"], r["hi"])
+        if sharded:
+            return P.localize_query_sharded(
+                mesh, *args, cloud, None, *grid, plan=plans_m.get(s1),
+                hist_plan=hplan_m if s2 == "HistPlan" else None,
+                _eager=eager, **kw)
+        return localize_query(
+            *args, r["xyz_d"], r["rgb_d"], *grid, r["mask_d"], masked=True,
+            plan=plans_1.get(s1),
+            hist_plan=r["hplan"] if s2 == "HistPlan" else None, device=dev,
+            _eager=eager, **kw)
+
+    def stage1(img_init, s1, sharded):
+        """Stage 1's scores on either path (for a differing start)."""
+        trans = torch.as_tensor(r["trans"], device=dev)
+        rot = torch.as_tensor(r["rot"], device=dev)
+        T, R = trans.shape[0], rot.shape[0]
+        valid = torch.repeat_interleave(torch.as_tensor(r["valid"],
+                                                        device=dev), R)
+        pt, pr = make_pairs(trans, rot)
+        if sharded and s1 in plans_m:
+            sc = F._stage1_slab(mesh, plans_m[s1], cloud, img_init, False)
+        elif sharded:
+            m = 2 * 16
+            sc = F._stage1_gather(mesh, cloud, img_init,
+                                  F._pad_clone_rows(pt, m),
+                                  F._pad_clone_rows(pr, m), 16, False)
+        elif s1 in plans_1:
+            sc = slab_pair_scores(img_init, plans_1[s1])
+        else:
+            return _grid_scores(img_init, r["xyz_d"], r["rgb_d"], pt, pr,
+                                valid, r["mask_d"], 16)
+        sc = sc[:T * R]
+        sc = torch.cat([sc, torch.full((T * R - sc.shape[0],), math.inf,
+                                       device=dev)])
+        return torch.where(valid, sc, torch.full_like(sc, math.inf))
+
+    by_card = {}  # by kernel and card, over the mesh queries alone
+
+    def on_mesh(*a, **kw):
+        """A mesh query with every count set to 0 just before it and read
+        just after (the single-device queries are not counted)."""
+        _zero_counts()
+        out = one_query(*a, **kw)
+        torch.cuda.synchronize()
+        for name, got in _read_counts().items():
+            held = by_card.setdefault(name, {})
+            for card, n in got["by_card"].items():
+                held[card] = held.get(card, 0) + n
+        return out
+
+    checks, stage2_calls = [], {}
+    gt_t, _, img_init, img_main = _query_images(500, r["xyz"], r["rgb"], dev)
+    for s1, s2 in routes:
+        with _recording_stage2(stage2_calls):
+            got = on_mesh(img_init, img_main, s1, s2, True, **MESH_KW)
+        want = one_query(img_init, img_main, s1, s2, False, **MESH_KW)
+        same = (torch.equal(got.start_t, want.start_t)
+                and torch.equal(got.start_ypr, want.start_ypr))
+        if not same:
+            log(f"mesh, stage 1 {s1}, stage 2 {s2}: starts differ")
+            if not _swap_is_a_tie(stage1(img_init, s1, False),
+                                  stage1(img_init, s1, True),
+                                  MESH_KW["num_intermediate"]):
+                raise AssertionError(f"mesh {s1}/{s2}: starts differ beyond "
+                                     "a stage-1 tie")
+        elif int(got.winner) != int(want.winner):
+            raise AssertionError(f"mesh {s1}/{s2}: winner {int(got.winner)} "
+                                 f"against {int(want.winner)}")
+        d = float((got.cand_loss - want.cand_loss).abs().max())
+        if same and not d <= MESH_LOSS_BOUND:
+            raise AssertionError(f"mesh {s1}/{s2}: cand_loss {d} apart")
+        checks.append(dict(stage1=s1, stage2=s2, same_starts=same,
+                           winner=int(got.winner), cand_loss_gap=d))
+        log(f"mesh, stage 1 {s1}, stage 2 {s2} ({MESH_KW}): starts "
+            f"{'equal' if same else 'a stage-1 tie'}, winner "
+            f"{int(got.winner)} = {int(want.winner)}, cand_loss within {d:.3g}")
+
+    full = dict(num_intermediate=20, num_input=6, num_iter=100, lr=0.1,
+                patience=5, factor=0.8)
+    graphed = on_mesh(img_init, img_main, "f32", "HistPlan", True, **full)
+    eager = on_mesh(img_init, img_main, "f32", "HistPlan", True, eager=True,
+                    **full)
+    if not (torch.equal(graphed.cand_t, eager.cand_t)
+            and torch.equal(graphed.cand_ypr, eager.cand_ypr)
+            and torch.equal(graphed.cand_loss, eager.cand_loss)):
+        raise AssertionError("mesh: graphed and eager descents differ")
+    t_err = float(np.linalg.norm(graphed.t.cpu().numpy() - gt_t))
+    launches = {k: dict(total=sum(v.values()), by_card=v)
+                for k, v in by_card.items()}
+    log(f"mesh, full budget (20 -> 6 x 100), f32 plan + HistPlan: t_err "
+        f"{t_err:.4f} m; graphed and eager bit-equal; launches by card over "
+        f"the {len(routes) + 2} mesh queries {launches}")
+    if not t_err < 0.05:
+        raise AssertionError(f"mesh: t_err {t_err} m")
+    # the slab kernels run on every shard's card, the block histogram on
+    # every cand group's lead card (stage 2 runs there)
+    leads = {d.index for d in mesh.devices[:, 0]}
+    for name in MESH_KERNELS:
+        want = leads if name == "block_histogram" else {
+            d.index for d in mesh.cards()}
+        missing = sorted(want - set(by_card.get(name, {})))
+        if missing:
+            raise AssertionError(f"{name} never launched on cards {missing} "
+                                 "of the mesh")
+    rows = _mesh_kernel_rows(mesh, plans_m, img_init, stage2_calls, by_card,
+                             len(routes) + 2)
+    del stage2_calls
+
+    secs = {True: [], False: []}
+    one_query(img_init, img_main, "f32", "HistPlan", False, **full)
+    for i in range(MESH_QUERIES):
+        _, _, ii, im = _query_images(600 + i, r["xyz"], r["rgb"], dev)
+        for sharded in ((True, False) if i % 2 == 0 else (False, True)):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            q = one_query(ii, im, "f32", "HistPlan", sharded, **full)
+            q.t.cpu()
+            secs[sharded].append(time.time() - t0)
+    (m50, m90), (o50, o90) = _percentiles(secs[True]), _percentiles(secs[False])
+    profile_query(f"library, mesh 2x2 over {len(mesh.cards())} card(s)",
+                  lambda: one_query(ii, im, "f32", "HistPlan", True, **full),
+                  m50)
+    log(f"mesh 2x2 over {', '.join(mesh.fingerprint())}: s/query p50 "
+        f"{m50:.4f} p90 {m90:.4f} against one device p50 {o50:.4f} p90 "
+        f"{o90:.4f} ({MESH_QUERIES} each, in turns); all mesh "
+        f"{[round(v, 4) for v in secs[True]]}, one device "
+        f"{[round(v, 4) for v in secs[False]]}")
+    return dict(mesh=mesh.fingerprint(), checks=checks, t_err=t_err,
+                launches=launches, mesh_s=(m50, m90), one_s=(o50, o90),
+                rows=rows)
+
+
+def phase_mesh_cli_serving(cli_tree, dev):
+    """Two or more cards: configs/stanford.ini through the CLI with
+    n_devices=all against the same run on one card (the route names the
+    mesh, the same accuracy); then LocalizeService on one card, with
+    n_devices=all and with query_devices=all on the CLI room, under the
+    shipped config and with sharpen_color=False (stage 1 on the slab
+    plans): every request bit-equal to _run_fused on its own card, total_s
+    p50 and p90 of SERVED_REQUESTS, and requests per second, total_s p50
+    and the process's host CPU seconds a wall second from 4 concurrent
+    clients."""
+    from piccolo_tpu_torch.config import apply_overrides, parse_ini
+    from piccolo_tpu_torch.data import read_stanford
+    from piccolo_tpu_torch.harness.imaging import imread_rgb
+    from piccolo_tpu_torch.harness.localize import _run_fused
+    from piccolo_tpu_torch.main import main as cli_main
+    from piccolo_tpu_torch.serve import LocalizeService
+
+    out = {}
+    for label, ov in (("one card", ""),
+                      ("n_devices=all", f",n_devices={MESH_ALL}")):
+        log_dir = os.path.join(os.path.dirname(cli_tree), "log_mesh_" +
+                               label.replace(" ", "_").replace("=", "_"))
+        buf = io.StringIO()
+        t0 = time.time()
+        try:
+            with contextlib.redirect_stdout(buf):
+                acc = cli_main(["--config", CONFIG, "--log", log_dir,
+                                "--no-tensorboard", "--device", dev.type,
+                                "--override", f"data_root={cli_tree}{ov}"])
+        except Exception:
+            print(buf.getvalue()[-6000:], flush=True)
+            raise
+        routes = sorted({ln.split(":", 1)[1].strip()
+                         for ln in buf.getvalue().splitlines()
+                         if ln.startswith("route :")})
+        rows = _csv_rows(log_dir)
+        out[label] = dict(acc=acc, routes=routes,
+                          s=float(np.median([float(x[9]) for x in rows])),
+                          t_err=[float(x[7]) for x in rows],
+                          wall=time.time() - t0)
+        log(f"mesh cli, stanford.ini, {label}: accuracy {acc}; routes "
+            f"{routes}; median time (s) {out[label]['s']:.4f}; t_err (m) "
+            f"{[round(v, 4) for v in out[label]['t_err']]}")
+    if not all(rt.startswith("mesh") for rt in out["n_devices=all"]["routes"]):
+        raise AssertionError("n_devices=all: a route without the mesh")
+    if out["n_devices=all"]["acc"] != out["one card"]["acc"]:
+        raise AssertionError("n_devices=all changed the CLI's accuracy")
+
+    panos = sorted(glob.glob(os.path.join(cli_tree, "stanford", "pano",
+                                          "area_1", "*.png")))
+    pcd = os.path.join(cli_tree, "stanford", "pcd_not_aligned", "area_1",
+                       "office_1.txt")
+    xyz, rgb = (a.astype(np.float32) for a in read_stanford(pcd, 1))
+    images = [imread_rgb(p) for p in panos]
+    services = [(f"{name}{extra}", ",".join(x for x in (ov, sharp) if x))
+                for extra, sharp in (("", ""), (", sharpen_color=False",
+                                                "sharpen_color=False"))
+                for name, ov in (("one card", ""),
+                                 ("n_devices=all", f"n_devices={MESH_ALL}"),
+                                 ("query_devices=all",
+                                  f"query_devices={MESH_ALL}"))]
+    for label, ov in services:
+        cfg = parse_ini(CONFIG)
+        svc = LocalizeService(apply_overrides(cfg, ov) if ov else cfg,
+                              device=dev)
+        t0 = time.time()
+        svc.load_room(xyz, rgb, name="office_1", warm_shape=(512, 1024))
+        load_s = time.time() - t0
+        totals, used = [], set()
+        for i in range(SERVED_REQUESTS):
+            img = images[i % len(images)]
+            got = svc.localize(img)
+            cache = svc._rooms["office_1"][got["device_index"]]
+            ii, im, ru, _ = svc._prepare(img, cache)
+            res, _ = _run_fused(ii, im, cache, ru, svc.cfg, svc.init_dict,
+                                cache["grids"], svc.mesh, sync_plans=True)
+            if not (np.array_equal(got["t"], res.t.cpu().numpy())
+                    and got["loss"] == float(res.loss)):
+                raise AssertionError(f"served {label}: request {i} differs "
+                                     "from _run_fused on its card")
+            totals.append(got["total_s"])
+            used.add(str(cache["device"]))
+        n_req = 4 * len(images)
+        errors, busy, thread_cpu, held = [], [], {}, {}
+        held_lock = threading.Lock()
+
+        def client(k):
+            c0 = time.thread_time()
+            try:
+                for j in range(len(images)):
+                    got = svc.localize(images[(k + j) % len(images)])
+                    busy.append(got["total_s"])
+                    with held_lock:
+                        i = got["device_index"]
+                        held[i] = held.get(i, 0.0) + got["time_s"]
+            except Exception as exc:  # reported below
+                errors.append(exc)
+            thread_cpu[k] = time.thread_time() - c0
+
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(4)]
+        cpu0, t0 = os.times(), time.time()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.time() - t0
+        cpu1 = os.times()
+        # the process's CPU seconds a wall second: near 1 when one thread
+        # at a time runs Python (the host dispatch holds the GIL)
+        cores = ((cpu1.user - cpu0.user) + (cpu1.system - cpu0.system)) / wall
+        if errors:
+            raise errors[0]
+        p50, p90 = _percentiles(totals)
+        c50, _ = _percentiles(busy)
+        threads_s = [round(thread_cpu[k], 2) for k in sorted(thread_cpu)]
+        cards_s = {i: round(v, 2) for i, v in sorted(held.items())}
+        out[f"served {label}"] = dict(p50=p50, p90=p90, rps=n_req / wall,
+                                      busy_p50=c50, host_cores=cores,
+                                      cards=sorted(used), load_s=load_s,
+                                      thread_cpu_s=threads_s,
+                                      time_s_by_card=cards_s)
+        log(f"mesh serving, {label}: warmed in {load_s:.2f} s on "
+            f"{sorted(used)}; {SERVED_REQUESTS} requests bit-equal to "
+            f"_run_fused on their card, total_s p50 {p50:.4f} p90 {p90:.4f}; "
+            f"4 concurrent clients x {len(images)} requests: "
+            f"{n_req / wall:.3f} requests/s, total_s p50 {c50:.4f}, host "
+            f"CPU {cores:.2f} s a wall second; each client thread's host "
+            f"CPU s {threads_s}; time_s summed by query card {cards_s} in "
+            f"{wall:.2f} s")
+        del svc
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh_stretch(dev):
+    """Two or more cards: scripts/measure_stretch.py's room (1.02 M points,
+    4096x2048 main image, 1024x512 init image, 54 x 8 pairs, live splat,
+    6 x 100 descent), its stage 1 through the harness's admission: on one
+    card, then over the meshes (1, n), (2, n / 2) and (n, 1) of the n
+    visible cards (up to 4).  Each card's plan bytes (plan_exact_bytes of
+    the sizing pass) are printed before its streams are built; then 1
+    warm-up and STRETCH_QUERIES timed queries, s/query and t_err."""
+    from piccolo_tpu_torch import localize_query
+    from piccolo_tpu_torch.config import make_config
+    from piccolo_tpu_torch.harness import localize as hl
+    from piccolo_tpu_torch.init.candidates import default_init_dict
+    from piccolo_tpu_torch.parallel import (
+        localize_query_sharded,
+        make_mesh,
+        shard_cloud,
+    )
+    from piccolo_tpu_torch.testing import make_room, random_pose_inside
+    from piccolo_tpu_torch.testing import render_at
+
+    cards = _cards()[:4]
+    n = len(cards)
+    rng = np.random.default_rng(7)
+    xyz, rgb = make_room(rng, n_per_wall=170000, size=SIZE, texture="checker")
+    xyz_d, rgb_d, mask_d = hl._pad_cloud(xyz, rgb, dev)
+    lo, hi = hl._order_bounds(xyz, 0.05)
+    init = default_init_dict(xy_only=True, yaw_only=True, num_yaw=8,
+                             num_trans=50, z_prior=None, num_split_h=4,
+                             num_split_w=4)
+    grids = hl._FusedGrids(xyz, init, dev)
+    cfg = make_config(dataset="Stanford2D-3D-S", slab_init="auto",
+                      slab_plan_cache=False, slab_background_build=False)
+    cache = dict(xyz=xyz_d, rgb=rgb_d, mask=mask_d, device=dev)
+    kw = dict(num_intermediate=20, num_input=6, num_iter=100, lr=0.1,
+              patience=5, factor=0.8)
+    imgs = []
+    for i in range(STRETCH_QUERIES + 1):
+        gt_t, gt_ypr = random_pose_inside(np.random.default_rng(700 + i), SIZE)
+        main_img = render_at(xyz, rgb, gt_t, gt_ypr, (2048, 4096), device=dev)
+        imgs.append((gt_t, main_img[::4, ::4].contiguous(), main_img))
+    log(f"stretch room: {xyz.shape[0]} points padded to {xyz_d.shape[0]}, "
+        f"{grids.n_trans} x {int(grids.rot.shape[0])} pairs, 4096x2048 main, "
+        f"1024x512 init")
+    shapes = [None, (1, n), (2, n // 2), (n, 1)] if n >= 4 else \
+        [None, (1, n), (n, 1)]
+    out = {}
+    for shape in shapes:
+        mesh = None if shape is None else make_mesh(*shape, devices=cards)
+        label = "one card" if mesh is None else f"mesh {shape[0]}x{shape[1]}"
+        cloud = None if mesh is None else shard_cloud(mesh, xyz_d, rgb_d,
+                                                      mask_d)
+        t0 = time.time()
+        if mesh is None:
+            plan = hl._maybe_slab_plan(cfg, cache, grids, imgs[0][1],
+                                       sync=True)
+            card_bytes = {str(dev): 0 if plan is None else plan.nbytes}
+        else:
+            plan = hl._maybe_sharded_slab_plan(cfg, cache, grids, imgs[0][1],
+                                               mesh)
+            card_bytes = None if plan is None else plan.card_bytes
+        torch.cuda.synchronize()
+        build_s = time.time() - t0
+        layout = None if plan is None else (
+            "q8" if plan.quant else "compact" if plan.compact else "f32")
+        log(f"stretch, {label}: {layout} plan, bytes by card "
+            f"{card_bytes}, built in {build_s:.2f} s")
+
+        def query(k):
+            _, ii, im = imgs[k]
+            if mesh is None:
+                n_real = grids.n_trans * int(grids.rot.shape[0])
+                return localize_query(
+                    ii, im, xyz_d, rgb_d, grids.trans, grids.rot, grids.valid,
+                    lo, hi, mask_d, masked=True, plan=plan,
+                    plan_tail="xla" if plan is not None
+                    and plan.n_pairs < n_real else "pad", device=dev, **kw)
+            return localize_query_sharded(
+                mesh, ii, im, cloud, None, grids.trans, grids.rot,
+                grids.valid, lo, hi, plan=plan, **kw)
+
+        query(0)
+        secs, errs = [], []
+        for k in range(1, STRETCH_QUERIES + 1):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            res = query(k)
+            t = res.t.cpu().numpy()
+            secs.append(time.time() - t0)
+            errs.append(float(np.linalg.norm(t - imgs[k][0])))
+        peak = {str(d): torch.cuda.max_memory_allocated(d)
+                for d in (mesh.cards() if mesh is not None else [dev])}
+        out[label] = dict(s=float(np.median(secs)), secs=secs, t_err=errs,
+                          layout=layout, card_bytes=card_bytes,
+                          build_s=build_s, peak=peak)
+        log(f"stretch, {label}: s/query {[round(v, 4) for v in secs]} "
+            f"(median {out[label]['s']:.4f}); t_err (m) "
+            f"{[round(v, 4) for v in errs]}; peak memory by card {peak}")
+        if not np.median(errs) < 0.05:
+            raise AssertionError(f"stretch {label}: t_err {errs}")
+        for k in [k for k in cache if isinstance(k, tuple)]:
+            cache.pop(k)
+        del plan, cloud
+        torch.cuda.empty_cache()
+        for d in cards:
+            torch.cuda.reset_peak_memory_stats(d)
+    return out
+
+
 def timed(name, fn, *args):
     t0 = time.time()
     out = fn(*args)
@@ -2537,6 +3221,7 @@ def main():
     timed("profile", phase_profile, room, dev, median_s)
     timed("graph vs eager", phase_graph_vs_eager, room, dev)
     timed("speed modes", phase_speed_modes, room, dev)
+    mesh = timed("mesh", phase_mesh, room, dev)
     del room
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="piccolo_cli_")
@@ -2547,6 +3232,11 @@ def main():
         launched = timed("cli", phase_cli, cli, dev)
         cli_tree = cli["tree"]
         timed("cli stanford_parallel", phase_cli_parallel, cli_tree, dev)
+        if torch.cuda.device_count() >= 2:
+            timed("mesh cli and serving", phase_mesh_cli_serving, cli_tree,
+                  dev)
+        else:
+            log("mesh cli and serving: needs two cards (1 visible), not run")
         del cli
         torch.cuda.empty_cache()
         timed("serving", phase_serving, dev, tmp, cli_tree)
@@ -2587,6 +3277,11 @@ def main():
         launched["masked_histogram_counts"] = (
             n, OMNI_QUERIES - 1, "omniscenes cli tracking, sharpen_color, "
             "tracked frames' colour prep")
+        torch.cuda.empty_cache()
+        if torch.cuda.device_count() >= 2:
+            timed("mesh stretch room", phase_mesh_stretch, dev)
+        else:
+            log("mesh stretch room: needs two cards (1 visible), not run")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for row in rows:
@@ -2604,10 +3299,15 @@ def main():
     counts = {k: v for k, v in solver.graph_stats().items() if k != "graphs"}
     log("graphs: " + json.dumps(dict(counts, graphs=[GRAPHS[k]
                                                      for k in sorted(GRAPHS)])))
+    # the mesh path's rows (phase 24) carry their launches and errors by card
+    rows += mesh["rows"]
     keys = ("name", "route", "source", "replaces", "path", "launches",
             "launches_per_query", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}))
+    by_card = ("launches_by_card", "max_abs_err_by_card")
+    print(json.dumps({"kernels": [
+        {k: row[k] for k in keys + by_card if k in keys or k in row}
+        for row in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

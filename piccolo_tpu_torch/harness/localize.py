@@ -28,14 +28,21 @@ after the first from the previous frame's pose (``tracking.py``); tracked
 frames whose colour prep can run on the device take the uint8 frame there
 (``tracking.track_step_prepped_fetched``).
 
+``n_devices`` shards each fused query over a ('cand', 'point') mesh
+(``parallel``; ``mesh_cand`` / ``mesh_point`` factor it): on the card the
+count is of visible cards, with ``--device cpu`` of logical shards on the
+CPU.  The room lives on the mesh's lead device, and its cloud, slab plan
+and HistPlan are laid out on the mesh once per room.
+
 The CPU rule of the JAX package (``auto`` plans off on the CPU backend)
 becomes: ``auto`` plans are off when the room lives on the CPU.  Config
-keys of later slices (multi-device, profiling, the executable cache) raise
+keys of later slices (profiling, the executable cache) raise
 ``NotImplementedError`` naming the slice; none is ignored.
 """
 
 from __future__ import annotations
 
+import collections
 import glob as globlib
 import os
 import random
@@ -377,15 +384,16 @@ def _run_staged(img_init, img_main, cache, rgb_used, cfg, init_dict,
     return res, traj, (trans0, rot0)
 
 
-def _localize_one(b, cache, cfg, init_dict, fused: bool, want_traj: bool):
+def _localize_one(b, cache, cfg, init_dict, fused: bool, want_traj: bool,
+                  mesh=None):
     """One query by the fused or the staged path: a dict with the winner
     index ``k``, its ``t``, ``R``, ``ypr`` and ``loss`` on the host, the starting
     poses ``trans0``/``rot0`` (numpy), the printed ``route`` and ``traj``
-    (None unless ``want_traj``)."""
+    (None unless ``want_traj``).  ``mesh`` shards the fused query."""
     if fused:
         fres, route = _run_fused(b["img_init"], b["img_main"], cache,
                                  b["rgb_used"], cfg, init_dict,
-                                 cache["grids"], want_traj=want_traj)
+                                 cache["grids"], mesh, want_traj=want_traj)
         traj = None
         if want_traj:
             fres, traj = fres
@@ -407,9 +415,6 @@ def _localize_one(b, cache, cfg, init_dict, fused: bool, want_traj: bool):
 
 def _check_config(cfg, init_dict) -> None:
     """Refuse, loudly, the keys whose paths belong to later slices."""
-    if cfg_get(cfg, "n_devices") not in (None, 0, 1):
-        raise _unported("n_devices > 1 (one query sharded over a mesh)",
-                        "multi-device")
     check_criterion(cfg_get(cfg, "criterion", "loss_histogram"))
     if cfg_get(cfg, "profile_dir"):
         raise _unported("profile_dir (per-query traces)", "profiling")
@@ -431,6 +436,10 @@ def _room_device(cfg, device) -> torch.device:
     i = cfg_get(cfg, "device_index")
     if i is None:
         return dev
+    if cfg_get(cfg, "n_devices") not in (None, 0, 1):
+        raise ValueError(
+            "device_index (pin this process to one card) and n_devices "
+            "(shard each query over a mesh) are mutually exclusive")
     if dev.type != "cuda":
         raise ValueError("device_index pins the run to one card; it needs "
                          "--device cuda")
@@ -439,6 +448,53 @@ def _room_device(cfg, device) -> torch.device:
         raise ValueError(f"device_index={i} but only "
                          f"{torch.cuda.device_count()} devices are visible")
     return torch.device("cuda", i)
+
+
+def _maybe_mesh(cfg, device: torch.device):
+    """The ('cand', 'point') mesh the config asks for, or None.
+
+    ``n_devices``: an int or ``"all"``; unset or 1 keeps the single-device
+    path.  On the card it counts visible cards (beyond them it raises); on
+    the CPU it counts logical shards, every one on the CPU.  ``mesh_cand``
+    / ``mesh_point`` give the factorization (default: ``make_mesh``'s)."""
+    n = cfg_get(cfg, "n_devices")
+    if n in (None, 0, 1):
+        return None
+    from ..parallel import make_mesh
+
+    if device.type == "cuda":
+        visible = torch.cuda.device_count()
+        n = visible if n == "all" else int(n)
+        if n > visible:
+            raise ValueError(
+                f"n_devices={n} but only {visible} devices are visible")
+        devices = [torch.device("cuda", i) for i in range(n)]
+    else:
+        if n == "all":
+            raise ValueError(
+                "n_devices='all' counts visible cards; on the CPU give the "
+                "number of logical shards")
+        n = int(n)
+        devices = [device] * n
+    if n == 1:
+        return None
+    return make_mesh(cfg_get(cfg, "mesh_cand"), cfg_get(cfg, "mesh_point"),
+                     devices=devices)
+
+
+def _check_mesh_usable(mesh, fused: bool, vis: bool = False):
+    """The mesh, or None with a warning when the config has no sharded
+    path: the staged path (``sample_rate_for_init``, ``fused = False``)
+    and ``visualize`` (per-iteration trajectories) run on one device."""
+    if mesh is not None and (not fused or vis):
+        print(
+            "WARNING: n_devices requested but this config has no sharded "
+            "program (sample_rate_for_init / fused = False need the staged "
+            "path; visualize needs per-iteration trajectories); running "
+            "single-device.\n"
+        )
+        return None
+    return mesh
 
 
 class _FusedGrids:
@@ -751,7 +807,52 @@ def _maybe_slab_plan(cfg, cache, grids, img_init, sync: bool = False):
     return None
 
 
-def _maybe_hist_plan(cfg, cache, grids, img_init, sync: bool = False):
+def _maybe_sharded_slab_plan(cfg, cache, grids, img_init, mesh):
+    """The room's slab plans laid out on ``mesh`` (``parallel.
+    shard_grid_plan``), or None for the gather engine on the mesh.
+
+    The single-device admission picks the layout; the plans build in line,
+    each shard on its own device, and are cached per (room, image size,
+    layout, mesh devices).  The budget is per card: a card holds all of its
+    shards (a mesh may repeat one), and over the layout's cap stage 1
+    stays on the gather engine.  A partial plan (the single device's
+    budget-truncated plan) keeps the gather engine under a mesh, as in the
+    JAX package."""
+    adm = _slab_admission(cfg, cache, grids, img_init)
+    if adm is None or adm["n_t_build"] < adm["n_t"]:
+        return None
+    from ..kernels.slab_sampling import PlanOverBudget
+    from ..parallel import shard_grid_plan
+
+    H, W = int(img_init.shape[0]), int(img_init.shape[1])
+    compact, quant, sharpen = adm["compact"], adm["quant"], adm["sharpen"]
+    key = (("slab_plan_sharded", H, W, compact, compact and sharpen,
+            adm["wrap"], quant) + mesh.fingerprint())
+    failed = ("slab_plan_sharded_failed",) + key[1:]
+    if key in cache:
+        return cache[key]
+    if failed in cache:
+        return None
+    cap = None
+    if adm["mode"] == "auto":
+        cap = adm["cap"]["q8" if quant else "compact" if compact else "f32"]
+    try:
+        with _PLAN_BUILD_GATE:
+            cache[key] = shard_grid_plan(
+                mesh, cache["xyz"], cache["rgb"], cache["mask"],
+                grids.trans[:adm["n_t"]], grids.rot, H, W, compact=compact,
+                tp_is_pid=compact and sharpen, wrap=adm["wrap"], quant=quant,
+                bytes_cap=cap)
+    except PlanOverBudget as exc:
+        print(f"sharded slab plan over budget ({exc}); using the gather "
+              "engine on the mesh", flush=True)
+        cache[failed] = True
+        return None
+    return cache[key]
+
+
+def _maybe_hist_plan(cfg, cache, grids, img_init, sync: bool = False,
+                     mesh=None):
     """The room's stage-2 winner-bin planes (``hist_planes`` key), or None
     for the live splat.
 
@@ -759,7 +860,9 @@ def _maybe_hist_plan(cfg, cache, grids, img_init, sync: bool = False):
     (``sharpen_color`` / ``match_color``), ``criterion = loss``, or the
     planes (2 B a pixel a pair) plus the admitted slab plan exceed
     ``hist_planes_bytes_cap`` (default: the slab cap).  Same lifecycle as
-    the slab plan, without the disk cache.
+    the slab plan, without the disk cache.  Under ``mesh`` the slab plan
+    counts with the share its busiest card holds, and the planes in full:
+    they are built whole on the lead card before they are split.
     """
     mode = cfg_get(cfg, "hist_planes", "auto")
     if mode is False:
@@ -791,6 +894,9 @@ def _maybe_hist_plan(cfg, cache, grids, img_init, sync: bool = False):
             slab_bytes = plan_bytes_estimate(
                 n_pairs, int(cache["mask"].shape[0]), compact=adm["compact"],
             )
+        if mesh is not None:
+            busiest = max(collections.Counter(mesh.devices.flat).values())
+            slab_bytes = slab_bytes * busiest // mesh.devices.size
         if hist_plan_bytes(n_pairs, H, W) + slab_bytes > cap:
             return None
 
@@ -849,6 +955,26 @@ def _maybe_hist_plan(cfg, cache, grids, img_init, sync: bool = False):
         return None
 
 
+def _maybe_sharded_hist_plan(cfg, cache, grids, img_init, mesh):
+    """The room's stage-2 planes split over the mesh's cand groups
+    (``parallel.shard_hist_plan``), or None for the live splat: admitted
+    and built as :func:`_maybe_hist_plan` does (in line), then split, and
+    the whole planes dropped."""
+    H, W = int(img_init.shape[0]), int(img_init.shape[1])
+    key = ("hist_plan_sharded", H, W) + mesh.fingerprint()
+    if key in cache:
+        return cache[key]
+    base = _maybe_hist_plan(cfg, cache, grids, img_init, sync=True,
+                            mesh=mesh)
+    if base is None:
+        return None
+    from ..parallel import shard_hist_plan
+
+    cache[key] = shard_hist_plan(mesh, base)
+    cache.pop(("hist_plan", H, W), None)
+    return cache[key]
+
+
 def _mark_plan_failed(cache, key, sharpen) -> None:
     """Mark BOTH plan layouts failed for this (room, shape): a non-budget
     build failure is not layout-specific."""
@@ -864,30 +990,40 @@ def _drop_slab_plans(room) -> None:
         return
     drop = ("slab_plan", "slab_plan_pending", "slab_plan_failed",
             "slab_dkey", "slab_adm", "hist_plan", "hist_plan_pending",
-            "hist_plan_failed")
+            "hist_plan_failed", "slab_plan_sharded",
+            "slab_plan_sharded_failed", "hist_plan_sharded", "sharded_cloud")
     for k in [k for k in room if isinstance(k, tuple) and k and k[0] in drop]:
         room.pop(k)
 
 
-def _plan_route(plan, hist_plan, n_real_pairs, criterion) -> str:
+def _plan_route(plan, hist_plan, n_real_pairs, criterion, mesh=None) -> str:
     """The stages' route of one query, as printed per query."""
     if plan is None:
         s1 = "gather engine"
     else:
         layout = "q8" if plan.quant else ("compact" if plan.compact else "f32")
         s1 = f"{layout} slab plan"
-        if plan.n_pairs < n_real_pairs:
+        if mesh is not None:
+            s1 += " per shard"
+        elif plan.n_pairs < n_real_pairs:
             s1 += " (partial) + gather engine tail"
-    if criterion == "loss":
-        return f"stage 1 {s1}"
-    s2 = "HistPlan planes" if hist_plan is not None else "live splat"
-    return f"stage 1 {s1}, stage 2 {s2}"
+    route = f"stage 1 {s1}"
+    if criterion != "loss":
+        s2 = "HistPlan planes" if hist_plan is not None else "live splat"
+        route += f", stage 2 {s2}"
+    if mesh is not None:
+        c, p = mesh.devices.shape
+        route = (f"mesh {c}x{p} (cand x point) over "
+                 f"{', '.join(mesh.fingerprint())}: {route}")
+    return route
 
 
 def _run_fused(img_init, img_main, cache, rgb_used, cfg, init_dict, grids,
-               sync_plans=False, want_traj=False, probe=False):
-    """One query through ``localize_query`` on the room's device; returns
-    (result or (result, traj), route).
+               mesh=None, sync_plans=False, want_traj=False, probe=False):
+    """One query through ``localize_query`` on the room's device, or
+    through ``parallel.localize_query_sharded`` over ``mesh`` (the room on
+    its lead device; ``descent_multires_*`` is warned about and ignored
+    there); returns (result or (result, traj), route).
 
     ``probe=True`` is serving's per-room ``room = "auto"`` probe: a
     truncated query whose winner loss only ranks rooms.  Stages 1 and 2 as
@@ -914,10 +1050,39 @@ def _run_fused(img_init, img_main, cache, rgb_used, cfg, init_dict, grids,
         kw["num_iter"] = int(cfg_get(cfg, "room_auto_probe_iters", 30))
         prune = (max(1, kw["num_iter"] // 3), min(2, kw["num_input"]))
         multires = None
+    n_real_pairs = grids.n_trans * int(grids.rot.shape[0])
+    if mesh is not None:
+        from ..parallel import localize_query_sharded, shard_cloud
+
+        if multires is not None:
+            _warn_once("mesh_mr", "descent_multires_* is single-device only "
+                       "(the mesh descent has no multi-resolution mode) — "
+                       "ignored under n_devices")
+        # the room's cloud goes onto the mesh once; a rebound rgb_used
+        # (sharpen_color) is placed per query
+        key = ("sharded_cloud",) + mesh.fingerprint()
+        if key not in cache:
+            cache[key] = shard_cloud(mesh, cache["xyz"], cache["rgb"],
+                                     cache["mask"])
+        rebound = rgb_used is not cache["rgb"]
+        plan = _maybe_sharded_slab_plan(cfg, cache, grids, img_init, mesh)
+        hist_plan = (None if rebound else
+                     _maybe_sharded_hist_plan(cfg, cache, grids, img_init,
+                                              mesh))
+        out = localize_query_sharded(
+            mesh, img_init, img_main, cache[key],
+            rgb_used if rebound else None, grids.trans, grids.rot,
+            grids.valid, cache["lo"], cache["hi"], plan=plan,
+            hist_plan=hist_plan, plan_refresh_rgb=plan is not None and rebound,
+            descent_table=cfg_get(cfg, "descent_table", "auto"),
+            seam_wrap=bool(cfg_get(cfg, "seam_wrap", False)),
+            descent_prune=prune, **kw,
+        )
+        return out, _plan_route(plan, hist_plan, n_real_pairs,
+                                kw["criterion"], mesh)
     plan = _maybe_slab_plan(cfg, cache, grids, img_init, sync=sync_plans)
     # a budget-truncated partial plan covers fewer pairs than the grids'
     # real rows: the gather engine scores the uncovered tail
-    n_real_pairs = grids.n_trans * int(grids.rot.shape[0])
     plan_tail = (
         "xla" if plan is not None and plan.n_pairs < n_real_pairs else "pad"
     )
@@ -956,18 +1121,22 @@ def _seed_everything():
     random.seed(2)
 
 
-def _setup_run(cfg, device, log_dir):
+def _setup_run(cfg, device, log_dir, vis: bool = False):
     """The checks and set-up both harnesses share; returns (init_dict,
-    device, fused)."""
+    device, fused, mesh): under a mesh the device is its lead."""
     init_dict = get_init_dict(cfg)
     _check_config(cfg, init_dict)
     dev = _room_device(cfg, device)
+    fused = _use_fused(cfg, init_dict)
+    mesh = _check_mesh_usable(_maybe_mesh(cfg, dev), fused, vis)
+    if mesh is not None:
+        dev = mesh.lead
     _seed_everything()
     if cfg_get(cfg, "debug_nans", False):
         # the reference's always-on anomaly detection (localize.py:94)
         torch.autograd.set_detect_anomaly(True)
     os.makedirs(log_dir, exist_ok=True)
-    return init_dict, dev, _use_fused(cfg, init_dict)
+    return init_dict, dev, fused, mesh
 
 
 def _load_room(read_fn, pcd_name, sample_rate, out_q, dev, init_dict=None):
@@ -993,13 +1162,13 @@ def localize_stanford(cfg, writer=None, log_dir: str = "./log",
                       device="cuda") -> float:
     """Evaluate every Stanford2D-3D-S query panorama on ``device``.
     Returns the accuracy."""
-    init_dict, dev, fused = _setup_run(cfg, device, log_dir)
+    vis = cfg_get(cfg, "visualize", False)
+    init_dict, dev, fused, mesh = _setup_run(cfg, device, log_dir, vis)
     data_root = cfg_get(cfg, "data_root", "./data")
     area_num = cfg_get(cfg, "area")
     sample_rate = cfg_get(cfg, "sample_rate", 1)
     out_q = cfg_get(cfg, "out_of_room_quantile", 0.05)
     eval_full = cfg_get(cfg, "eval_full", False)
-    vis = cfg_get(cfg, "visualize", False)
     room_name = cfg_get(cfg, "room_name")
 
     def sort_key(path):
@@ -1106,7 +1275,7 @@ def localize_stanford(cfg, writer=None, log_dir: str = "./log",
                     continue
 
                 start = time.time()
-                q = _localize_one(b, cache, cfg, init_dict, fused, vis)
+                q = _localize_one(b, cache, cfg, init_dict, fused, vis, mesh)
                 k, t, R, loss_k = q["k"], q["t"], q["R"], q["loss"]
                 route, traj = q["route"], q["traj"]
                 elapsed = time.time() - start + b["prep_timed"]
@@ -1234,7 +1403,7 @@ def localize_omniscenes(cfg, writer=None, log_dir: str = "./log",
     before the colour prep and the descent that read it.  A prediction
     that misses finishes the host prep from that head.
     """
-    init_dict, dev, fused = _setup_run(cfg, device, log_dir)
+    init_dict, dev, fused, mesh = _setup_run(cfg, device, log_dir)
     data_root = cfg_get(cfg, "data_root", "./data")
     split_name = cfg_get(cfg, "split_name", "extreme")
     room_name = cfg_get(cfg, "room_name")
@@ -1393,7 +1562,8 @@ def localize_omniscenes(cfg, writer=None, log_dir: str = "./log",
                             finish_omniscenes_images(cfg, b["orig_u8"], cache))
                         b.update(orig=orig, img_init=img_init,
                                  img_main=img_main, rgb_used=rgb_used)
-                    q = _localize_one(b, cache, cfg, init_dict, fused, False)
+                    q = _localize_one(b, cache, cfg, init_dict, fused, False,
+                                      mesh)
                     k, t, R, loss_k = q["k"], q["t"], q["R"], q["loss"]
                     trans0, rot0, route = q["trans0"], q["rot0"], q["route"]
                     ypr_next = q["ypr"]

@@ -180,11 +180,17 @@ def _score_from_pbin(pbin: torch.Tensor, q: _QuerySide) -> torch.Tensor:
     return (inter * ok).sum(-1) / q.n_blocks
 
 
+def _splat_keys(xyz, rgb_bins, trans, ypr, pm, height, width):
+    """(k, H*W) packed z-buffer keys of the cloud's colour bins rendered at
+    k poses; a min over a split cloud's keys is the whole cloud's."""
+    cam = transform_cloud(_pose_batch(trans, ypr), xyz)
+    return attr_min_keys(cam, rgb_bins, _ATTR_BITS, (height, width), pm)
+
+
 def _splat_bins(xyz, rgb_bins, trans, ypr, pm, height, width):
     """(k, H*W) winner colour bins of the cloud rendered at k poses."""
-    cam = transform_cloud(_pose_batch(trans, ypr), xyz)
-    keys = attr_min_keys(cam, rgb_bins, _ATTR_BITS, (height, width), pm)
-    return attr_min_decode(keys, _ATTR_BITS)
+    return attr_min_decode(
+        _splat_keys(xyz, rgb_bins, trans, ypr, pm, height, width), _ATTR_BITS)
 
 
 def hist_scores_core(img, xyz, rgb, trans, ypr, pm, num_split_h: int,

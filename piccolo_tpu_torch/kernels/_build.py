@@ -24,7 +24,7 @@ from pathlib import Path
 from typing import Dict, Iterable, Iterator
 
 __all__ = ["load_library", "load_host_library", "build_all",
-           "KERNEL_SOURCES", "on_device"]
+           "KERNEL_SOURCES", "on_device", "count_launch"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -131,3 +131,10 @@ def on_device(device) -> Iterator[ctypes.c_void_p]:
 
     with torch.cuda.device(device):
         yield ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def count_launch(wrapper, device) -> None:
+    """Count one launch of ``wrapper``'s kernel: ``wrapper.launches`` in
+    all, ``wrapper.by_card`` per card index."""
+    wrapper.launches += 1
+    wrapper.by_card[device.index] = wrapper.by_card.get(device.index, 0) + 1

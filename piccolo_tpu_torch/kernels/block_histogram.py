@@ -14,7 +14,7 @@ import functools
 
 import torch
 
-from ._build import load_library, on_device
+from ._build import count_launch, load_library, on_device
 
 __all__ = ["block_histogram", "block_histogram_plain"]
 
@@ -72,8 +72,8 @@ def block_histogram(ids: torch.Tensor, mask: torch.Tensor,
                      num_bins, stream)
     if err != 0:
         raise RuntimeError(f"block_histogram launch failed: CUDA error {err}")
-    block_histogram.launches += 1
+    count_launch(block_histogram, ids.device)
     return out
 
 
-block_histogram.launches = 0
+block_histogram.launches, block_histogram.by_card = 0, {}

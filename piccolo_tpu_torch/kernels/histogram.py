@@ -18,7 +18,7 @@ import functools
 
 import torch
 
-from ._build import load_library, on_device
+from ._build import count_launch, load_library, on_device
 
 __all__ = ["masked_histogram_counts", "masked_histogram_counts_plain"]
 
@@ -98,8 +98,8 @@ def masked_histogram_counts(ids: torch.Tensor, mask: torch.Tensor,
                      out.data_ptr(), n, num_bins, n_cta, stream)
     if err != 0:
         raise RuntimeError(f"masked_histogram launch failed: CUDA error {err}")
-    masked_histogram_counts.launches += 1
+    count_launch(masked_histogram_counts, ids.device)
     return out
 
 
-masked_histogram_counts.launches = 0
+masked_histogram_counts.launches, masked_histogram_counts.by_card = 0, {}

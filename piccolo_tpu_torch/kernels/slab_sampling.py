@@ -39,7 +39,7 @@ from ..device import as_tensor, resolve_device
 from ..loss import Pose, transform_cloud
 from ..ops.projection import safe_norm, spherical_project
 from ..ops.sampling import pack_bilinear_blocks, packed_rows_and_weights
-from ._build import load_library, on_device
+from ._build import count_launch, load_library, on_device
 
 __all__ = [
     "GridPlan",
@@ -58,6 +58,7 @@ __all__ = [
     "slab_group_sums_q8_plain",
     "slab_group_partials",
     "slab_pair_scores",
+    "plan_group_sums",
     "plan_required_blocks",
     "nb_bucket",
     "plan_bytes_estimate",
@@ -376,7 +377,8 @@ def build_grid_plan(xyz, rgb, point_mask, trans_grid, rot_grid, height: int,
                     bytes_cap: Optional[int] = None, nb: Optional[int] = None,
                     wrap: bool = False, window: Optional[int] = None,
                     block: Optional[int] = None, quant: bool = False,
-                    device="cuda") -> GridPlan:
+                    device="cuda",
+                    groups: Optional[Tuple[int, int]] = None) -> GridPlan:
     """Build the room-static sorted sample streams (once per room and
     init-image size), in the f32 layout, or compact (``compact``) or q8
     (``compact`` and ``quant``) with targets or, under ``tp_is_pid``, point
@@ -386,7 +388,9 @@ def build_grid_plan(xyz, rgb, point_mask, trans_grid, rot_grid, height: int,
     pass fixes the bucketed block count unless ``nb`` forces it;
     ``bytes_cap`` then raises :class:`PlanOverBudget` before any stream is
     built.  Groups are built one after another, so peak memory stays about
-    one group above the plan.
+    one group above the plan.  ``groups=(first, stop)`` builds only those
+    groups (a mesh shard's slice); the plan still names every pair in
+    ``n_pairs``.
     """
     if quant and not compact:
         raise ValueError("quant=True is a sub-mode of compact plans "
@@ -408,12 +412,13 @@ def build_grid_plan(xyz, rgb, point_mask, trans_grid, rot_grid, height: int,
     if nb is None:
         nb = nb_bucket(max(_blocks_needed(project(g)[0], n_win, window, block)
                             for g in range(n_groups)))
+    first, stop = (0, n_groups) if groups is None else groups
     if bytes_cap is not None:
-        exact = plan_exact_bytes(n_groups, nb, compact, block, quant=quant)
+        exact = plan_exact_bytes(stop - first, nb, compact, block, quant=quant)
         if exact > bytes_cap:
             raise PlanOverBudget(exact, bytes_cap)
     fields, windows, tps = [], [], []
-    for g in range(n_groups):
+    for g in range(first, stop):
         f, w, t = _layout_group(*project(g), rgb, nb=nb, n_win=n_win,
                                 window=window, block=block, compact=compact,
                                 tp_is_pid=tp_is_pid, quant=quant)
@@ -702,7 +707,7 @@ def _group_sums(wrapper, layout: int, table, fields, tps, windows, window,
             partials.data_ptr(), n_cta, nb, block, window, chunk, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    wrapper.launches += 1
+    count_launch(wrapper, fields.device)
     sums = partials.sum(0)
     return sums[0], sums[1]
 
@@ -740,9 +745,8 @@ def slab_group_sums_q8(table: torch.Tensor, fields: torch.Tensor,
                        window, palette)
 
 
-slab_group_sums_f32.launches = 0
-slab_group_sums_compact.launches = 0
-slab_group_sums_q8.launches = 0
+for _w in (slab_group_sums_f32, slab_group_sums_compact, slab_group_sums_q8):
+    _w.launches, _w.by_card = 0, {}
 
 
 def _check_refresh(compact: bool, tp_is_pid: bool, rgb) -> None:
@@ -776,32 +780,41 @@ def slab_group_partials(table: torch.Tensor, fields: torch.Tensor,
     return slab_group_sums_f32(table, fields, windows, window, rgb)
 
 
-def slab_pair_scores(img: torch.Tensor, plan: GridPlan,
-                     rgb: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Stage-1 sampling losses of the planned pairs, (n_pairs,) f32, +inf
-    where a pair samples nothing.  Pass ``rgb`` when the cloud colours
-    differ from the ones the plan was built with."""
-    H, W, _ = img.shape
+def plan_group_sums(table: torch.Tensor, plan: GridPlan,
+                    rgb: Optional[torch.Tensor] = None):
+    """(loss_sum, valid_count) of every group of ``plan`` against the
+    kernel's ``table`` (:func:`slab_table`), one launch a group; ``rgb``
+    re-bakes the targets (its palette is made once for all groups)."""
+    _check_refresh(plan.compact, plan.tp_is_pid, rgb)
+    if plan.compact:
+        sums = slab_group_sums_q8 if plan.quant else slab_group_sums_compact
+        palette = None if rgb is None else pack_rgb24(rgb)  # once a query
+        return [sums(table, f, tps, w, plan.window, palette)
+                for f, w, tps in zip(plan.fields, plan.windows, plan.tps)]
+    rgb4 = None if rgb is None else _rgb4(rgb)  # once a query
+    return [slab_group_sums_f32(table, f, w, plan.window, rgb4)
+            for f, w in zip(plan.fields, plan.windows)]
+
+
+def _check_plan_image(plan, H: int, W: int) -> None:
     if plan.height and (plan.height, plan.width) != (H, W):
         raise ValueError(
             f"plan was built for a {plan.height}x{plan.width} init image but "
             f"the query image is {H}x{W} — its table rows index a different "
             "sampling table (stale plan?)"
         )
-    _check_refresh(plan.compact, plan.tp_is_pid, rgb)
+
+
+def slab_pair_scores(img: torch.Tensor, plan: GridPlan,
+                     rgb: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Stage-1 sampling losses of the planned pairs, (n_pairs,) f32, +inf
+    where a pair samples nothing.  Pass ``rgb`` when the cloud colours
+    differ from the ones the plan was built with."""
+    H, W, _ = img.shape
+    _check_plan_image(plan, H, W)
     table = slab_table(img, wrap=plan.wrap, window=plan.window)
-    if plan.compact:
-        sums = slab_group_sums_q8 if plan.quant else slab_group_sums_compact
-        palette = None if rgb is None else pack_rgb24(rgb)  # once a query
-        group_sums = (sums(table, f, tps, w, plan.window, palette)
-                      for f, w, tps in zip(plan.fields, plan.windows,
-                                           plan.tps))
-    else:
-        rgb4 = None if rgb is None else _rgb4(rgb)  # once a query
-        group_sums = (slab_group_sums_f32(table, f, w, plan.window, rgb4)
-                      for f, w in zip(plan.fields, plan.windows))
     scores = []
-    for tot, cnt in group_sums:
+    for tot, cnt in plan_group_sums(table, plan, rgb):
         mean = tot / cnt.clamp_min(1.0)
         scores.append(torch.where(cnt > 0, mean,
                                   torch.full_like(mean, float("inf"))))

@@ -29,6 +29,8 @@ __all__ = [
     "pose_rotation",
     "sampling_loss",
     "sampling_loss_packed",
+    "sampling_partials_packed",
+    "masked_mean",
     "transform_cloud",
 ]
 
@@ -99,15 +101,35 @@ def sampling_loss_packed(pose: Pose, xyz: torch.Tensor, rgb: torch.Tensor,
     return _masked_color_loss(sampled, rgb, point_mask)
 
 
-def _masked_color_loss(sampled, rgb, point_mask):
+def sampling_partials_packed(pose: Pose, xyz: torch.Tensor, rgb: torch.Tensor,
+                             blocks: torch.Tensor, height: int, width: int,
+                             point_mask: Optional[torch.Tensor] = None,
+                             wrap: bool = False):
+    """The two sums behind :func:`sampling_loss_packed`: the colour
+    distances' total and the valid count (int64) over this cloud's points.
+    A cloud split into shards gives the whole cloud's loss from its shards'
+    sums (``parallel``)."""
+    coords = spherical_project(transform_cloud(pose, xyz))
+    sampled = bilinear_sample_packed(blocks, height, width, coords, wrap=wrap)
+    return _masked_color_partials(sampled, rgb, point_mask)
+
+
+def _masked_color_partials(sampled, rgb, point_mask):
     # pure-black samples are dropped (reference omniloc.py:198)
     valid = (sampled == 0.0).sum(-1) != 3
     if point_mask is not None:
         valid = valid & _per_room(point_mask, 0)
     per_point = safe_norm(sampled - _per_room(rgb, 1))
-    count = valid.sum(-1)
-    total = (per_point * valid).sum(-1)
-    # a pose that samples nothing scores +inf (ranking discards it; the
-    # where keeps its gradient finite)
+    return (per_point * valid).sum(-1), valid.sum(-1)
+
+
+def masked_mean(total: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """The loss from its sums: ``total / count``, and +inf where a pose
+    samples nothing (ranking discards it; the where keeps its gradient
+    finite)."""
     mean = total / count.clamp_min(1)
     return torch.where(count > 0, mean, torch.full_like(mean, float("inf")))
+
+
+def _masked_color_loss(sampled, rgb, point_mask):
+    return masked_mean(*_masked_color_partials(sampled, rgb, point_mask))

@@ -26,16 +26,21 @@ batched descent.  ``room="auto"`` ranks the resident rooms by full queries,
 by a probe per room, or (``room_auto_probe = "batched"``) by one probe over
 every room (``probe.py``).
 
-The service runs on one card (``device="cuda"``, the default) unless the
-caller passes ``device="cpu"``.  Round-robin over several cards
-(``query_devices``) and the executable cache (``exec_cache_dir``,
-``--exec-cache``) belong to later slices of the port and raise.
+The service runs on the card (``device="cuda"``, the default) unless the
+caller passes ``device="cpu"``.  Two config keys use more devices, and
+exclude each other: ``n_devices`` shards each query over a ('cand',
+'point') mesh (``parallel``), and ``query_devices`` holds one replica of
+every room on each of N cards and answers whole requests round-robin on
+them, each card under its own compute lock (on the CPU both count logical
+devices).  The executable cache (``exec_cache_dir``, ``--exec-cache``)
+belongs to a later slice of the port and raises.
 """
 
 from __future__ import annotations
 
 import argparse
 import base64
+import contextlib
 import json
 import threading
 import time
@@ -51,6 +56,7 @@ from .device import as_tensor, resolve_device
 from .harness.localize import (
     _drop_slab_plans,
     _FusedGrids,
+    _maybe_mesh,
     _order_bounds,
     _pad_cloud,
     _run_fused,
@@ -77,12 +83,14 @@ _CFG_DEFAULTS = dict(
 
 
 class LocalizeService:
-    """Resident rooms on one device; ``localize()`` per query panorama.
+    """Resident rooms; ``localize()`` per query panorama.
 
     Construct with a config namedtuple (``parse_ini`` output) or keyword
     config values; every key the batch harness honors works here (init
-    budget, descent_table, slab_init, ...).  ``device``: the card
-    (``"cuda"``, the default; raises without one) or ``"cpu"``.
+    budget, descent_table, slab_init, n_devices, ...).  ``device``: the
+    card (``"cuda"``, the default; raises without one) or ``"cpu"``.
+    ``query_devices = N`` (or ``"all"``) puts a replica of each room on N
+    cards and answers requests on them in turn.
     """
 
     def __init__(self, cfg=None, max_rooms: int = 1, max_pending: int = 8,
@@ -106,20 +114,23 @@ class LocalizeService:
                 "serving returns no per-iteration artifacts; drop "
                 "visualize=True from the config"
             )
-        if cfg_get(cfg, "query_devices") not in (None, 0, 1):
-            raise _unported("query_devices > 1 (queries round-robin over "
-                            "cards)", "multi-device")
-        if cfg_get(cfg, "n_devices") not in (None, 0, 1):
-            raise _unported("n_devices > 1 (one query sharded over a mesh)",
-                            "multi-device")
         if cfg_get(cfg, "exec_cache_dir"):
             raise _unported("exec_cache_dir (the executable cache)",
                             "executable-cache")
-        self.device = resolve_device(device)
-        # one compute lock per device: requests prep on their own threads
-        # while one holds the card; the room registry has its own lock so
-        # health checks and loads never wait out a query
-        self._compute_locks = [threading.Lock()]
+        dev = resolve_device(device)
+        self._devices = self._resolve_query_devices(cfg, dev)
+        # n_devices: each query sharded over a mesh; its rooms live on the
+        # mesh's lead device
+        self.mesh = _maybe_mesh(cfg, dev)
+        if self.mesh is not None:
+            self._devices = [self.mesh.lead]
+        self.device = self._devices[0]
+        # one compute lock per query device: requests prep on their own
+        # threads while one holds the card; the room registry has its own
+        # lock so health checks and loads never wait out a query
+        self._compute_locks = [threading.Lock() for _ in self._devices]
+        self._rr_lock = threading.Lock()
+        self._rr = 0
         self._rooms_lock = threading.Lock()
         # LRU of resident rooms; eviction drops a room's plans promptly (a
         # room evicted mid-query lives on through the query's references)
@@ -132,11 +143,36 @@ class LocalizeService:
         self._pending_lock = threading.Lock()
         # track_batch: tracked requests queued per device, drained as one
         # batch by whichever request next takes the compute lock
-        self._track_queues = [deque()]
-        self._track_qlocks = [threading.Lock()]
+        self._track_queues = [deque() for _ in self._devices]
+        self._track_qlocks = [threading.Lock() for _ in self._devices]
         # room_auto_probe = "batched": the probe state per device, keyed by
         # the resident set it was built from
         self._batched_probes: Dict[int, tuple] = {}
+
+    @staticmethod
+    def _resolve_query_devices(cfg, dev: torch.device):
+        """One device per query-parallel replica: ``[dev]`` unless
+        ``query_devices`` asks for N > 1 (``"all"``: every visible card;
+        on the CPU, N logical devices)."""
+        qd = cfg_get(cfg, "query_devices")
+        if qd in (None, 0, 1):
+            return [dev]
+        if cfg_get(cfg, "n_devices") not in (None, 0, 1):
+            raise ValueError(
+                "query_devices (round-robin queries over cards) and "
+                "n_devices (shard each query over a mesh) are mutually "
+                "exclusive")
+        if dev.type != "cuda":
+            if qd == "all":
+                raise ValueError("query_devices='all' counts visible cards; "
+                                 "on the CPU give a number of replicas")
+            return [dev] * int(qd)
+        visible = torch.cuda.device_count()
+        n = visible if qd == "all" else int(qd)
+        if not 2 <= n <= visible:
+            raise ValueError(
+                f"query_devices={qd} but {visible} devices are visible")
+        return [torch.device("cuda", i) for i in range(n)]
 
     # -- health ------------------------------------------------------------
 
@@ -147,8 +183,8 @@ class LocalizeService:
 
     @property
     def devices(self) -> int:
-        """Query-parallel device count (one)."""
-        return len(self._compute_locks)
+        """Query-parallel device count (1 without ``query_devices``)."""
+        return len(self._devices)
 
     @property
     def busy_devices(self) -> int:
@@ -182,15 +218,18 @@ class LocalizeService:
             )
         xyz = np.asarray(xyz, np.float32)
         rgb = np.asarray(rgb, np.float32)
-        xyz_d, rgb_d, mask_d = _pad_cloud(xyz, rgb, self.device)
         lo, hi = _order_bounds(
             xyz, cfg_get(self.cfg, "out_of_room_quantile", 0.05))
-        cache = dict(pcd=name, xyz_np=xyz, rgb_np=rgb, xyz=xyz_d, rgb=rgb_d,
-                     mask=mask_d, lo=lo, hi=hi, device=self.device,
-                     grids=_FusedGrids(xyz, self.init_dict, self.device))
+        caches = []
+        for dev in self._devices:  # one replica per query device
+            xyz_d, rgb_d, mask_d = _pad_cloud(xyz, rgb, dev)
+            caches.append(dict(
+                pcd=name, xyz_np=xyz, rgb_np=rgb, xyz=xyz_d, rgb=rgb_d,
+                mask=mask_d, lo=lo, hi=hi, device=dev,
+                grids=_FusedGrids(xyz, self.init_dict, dev)))
         with self._rooms_lock:
             self._rooms.pop(name, None)
-            self._rooms[name] = [cache]
+            self._rooms[name] = caches
             while len(self._rooms) > self._max_rooms:
                 _, evicted = self._rooms.popitem(last=False)
                 for c in evicted:
@@ -199,7 +238,8 @@ class LocalizeService:
             H, W = warm_shape
             noise = np.random.default_rng(0).integers(
                 0, 256, (int(H), int(W), 3), dtype=np.uint8)
-            self._localize_checked(noise, room=name)
+            for di in range(len(self._devices)):  # every device warms
+                self._localize_checked(noise, room=name, device_index=di)
 
     def load_room_pcd(self, path: str, dataset: Optional[str] = None) -> None:
         """Load a room from an ``x y z r g b`` text cloud (either dataset's
@@ -236,13 +276,14 @@ class LocalizeService:
         (default: the most recently used); ``room="auto"`` picks the room
         whose localization loss is lowest and adds ``room_scores``
         (``_select_room``).  Preprocessing is the harness's own per-query
-        prep.
+        prep.  Under ``query_devices`` requests take the devices in turn.
 
         Returns a dict with the winner pose (``t`` (3,), ``rot`` (3, 3)),
         its ``loss``, ``winner``, the candidates' ``cand_loss``,
         ``time_s`` (the reference's CSV timer: main resize + solve),
         ``total_s`` (in-service latency, all prep and the result copy
-        included), ``room`` and ``device_index``.
+        included), ``room`` and ``device_index`` (the query device that
+        answered).
 
         ``prev_pose`` (``{"t": [x, y, z], "ypr": [yaw, pitch, roll]}``, the
         fields a previous reply gives) switches the request to tracking: one
@@ -257,7 +298,8 @@ class LocalizeService:
 
     def _localize_checked(self, image: np.ndarray, room: Optional[str],
                           prev_pose=None,
-                          recover_above: Optional[float] = None) -> Dict:
+                          recover_above: Optional[float] = None,
+                          device_index: Optional[int] = None) -> Dict:
         if not self._rooms:
             raise RuntimeError("no room loaded — call load_room[_pcd] first")
         img = np.asarray(image)
@@ -275,7 +317,8 @@ class LocalizeService:
                 )
             self._pending += 1
         try:
-            return self._localize_admitted(img, room, 0, prev_pose=prev_pose,
+            return self._localize_admitted(img, room, device_index,
+                                           prev_pose=prev_pose,
                                            recover_above=recover_above)
         finally:
             with self._pending_lock:
@@ -291,22 +334,33 @@ class LocalizeService:
                 prepare_stanford_images(self.cfg, img, cache))
         return img_init, img_main, rgb_used, prep_timed
 
-    _PLAN_KEY_HEADS = ("slab_plan", "hist_plan")
+    _PLAN_KEY_HEADS = ("slab_plan", "hist_plan", "slab_plan_sharded",
+                       "hist_plan_sharded")
 
     def _resident_plan_bytes(self, exclude_cache, device_index: int) -> int:
-        """Device memory already held by OTHER resident rooms' plans."""
+        """Device memory already held by OTHER resident rooms' plans on the
+        busiest card: a plan on one device counts on that device, a sharded
+        plan counts what it holds on each card of its mesh (``card_bytes``),
+        since admission checks a sharded plan against the cap card by
+        card."""
         with self._rooms_lock:
             rooms = list(self._rooms.values())
-        total = 0
+        held: Dict[str, int] = {}
         for caches in rooms:
             c = caches[device_index]
             if c is exclude_cache:
                 continue
             for k, v in list(c.items()):
-                if (isinstance(k, tuple) and k
+                if not (isinstance(k, tuple) and k
                         and k[0] in self._PLAN_KEY_HEADS):
-                    total += int(getattr(v, "nbytes", 0) or 0)
-        return total
+                    continue
+                by_card = getattr(v, "card_bytes", None)
+                if by_card is None:
+                    by_card = {str(c["device"]):
+                               int(getattr(v, "nbytes", 0) or 0)}
+                for card, n in by_card.items():
+                    held[card] = held.get(card, 0) + int(n)
+        return max(held.values(), default=0)
 
     def _budget_cfg(self, cache, device_index: int):
         """Per-call cfg whose plan caps subtract the memory other resident
@@ -326,7 +380,7 @@ class LocalizeService:
 
         base = cfg_get(self.cfg, "slab_bytes_cap")
         if base is None:
-            base = default_plan_bytes_cap(self.device)
+            base = default_plan_bytes_cap(cache["device"])
         hist_base = cfg_get(self.cfg, "hist_planes_bytes_cap")
         overrides = dict(
             self.cfg._asdict(),
@@ -346,7 +400,7 @@ class LocalizeService:
             res, _ = _run_fused(
                 img_init, img_main, cache, rgb_used,
                 self._budget_cfg(cache, device_index), self.init_dict,
-                cache["grids"], sync_plans=True,
+                cache["grids"], self.mesh, sync_plans=True,
             )
             packed = torch.cat([
                 res.t, res.rot.reshape(-1), res.loss.reshape(1),
@@ -371,10 +425,13 @@ class LocalizeService:
             raise ValueError(f"non-finite prev_pose: t={t} ypr={ypr}")
         return t, ypr
 
-    def _track_kw(self) -> Dict:
+    def _track_kw(self, cache=None) -> Dict:
+        """The tracking keys of the config, on ``cache``'s device (default:
+        the first query device)."""
         from .tracking import track_kwargs
 
-        return dict(device=self.device, **track_kwargs(self.cfg))
+        dev = self.device if cache is None else cache["device"]
+        return dict(device=dev, **track_kwargs(self.cfg))
 
     def _track_room(self, prep, cache, device_index: int, prev_pose) -> Dict:
         """One warm-started single-start descent (``tracking.track_step``)
@@ -388,7 +445,8 @@ class LocalizeService:
             t0 = time.time()
             t, ypr, rot, loss = track_step_fetched(
                 img_main, cache["xyz"], rgb_used, t_prev, ypr_prev,
-                cache["lo"], cache["hi"], cache["mask"], **self._track_kw())
+                cache["lo"], cache["hi"], cache["mask"],
+                **self._track_kw(cache))
             elapsed = time.time() - t0 + prep_timed
         return dict(t=t, rot=rot, loss=loss, winner=0,
                     cand_loss=np.asarray([loss], np.float32), ypr=ypr,
@@ -452,7 +510,7 @@ class LocalizeService:
 
         try:
             t0 = time.time()
-            kw = self._track_kw()
+            kw = self._track_kw(cache)
             if len(batch) == 1:
                 e = batch[0]
                 results = [track_step_fetched(
@@ -463,7 +521,7 @@ class LocalizeService:
                 while bucket < len(batch):
                     bucket *= 2
                 rows = batch + [batch[-1]] * (bucket - len(batch))
-                imgs = torch.stack([as_tensor(e["img"], self.device,
+                imgs = torch.stack([as_tensor(e["img"], cache["device"],
                                               torch.float32) for e in rows])
                 results = track_steps_batched(
                     imgs, cache["xyz"], cache["rgb"],
@@ -495,7 +553,7 @@ class LocalizeService:
             res, _ = _run_fused(
                 img_init, img_main, cache, rgb_used,
                 self._budget_cfg(cache, device_index), self.init_dict,
-                cache["grids"], sync_plans=True, probe=True,
+                cache["grids"], self.mesh, sync_plans=True, probe=True,
             )
             return float(res.loss)
 
@@ -514,7 +572,7 @@ class LocalizeService:
                 rooms, rooms[0][1]["grids"].rot,
                 max_pairs=int(cfg_get(self.cfg, "room_auto_probe_pairs",
                                       512)),
-                device=self.device)
+                device=self._devices[device_index])
             held = self._batched_probes[device_index] = (key, st)
         return held[1]
 
@@ -663,9 +721,25 @@ class LocalizeService:
         return best[0], best[1], scores
 
     def _localize_admitted(self, img: np.ndarray, room: Optional[str],
-                           device_index: int = 0, prev_pose=None,
+                           device_index: Optional[int] = None, prev_pose=None,
                            recover_above: Optional[float] = None) -> Dict:
         t_start = time.time()
+        if device_index is None:  # the query devices in turn
+            with self._rr_lock:
+                device_index = self._rr % len(self._devices)
+                self._rr += 1
+        # the request's card is the thread's current device, so that work
+        # which takes the current device (streams, events, a bare "cuda")
+        # lands on the replica's card and not on cuda:0
+        dev = self._devices[device_index]
+        with (torch.cuda.device(dev) if dev.type == "cuda"
+              else contextlib.nullcontext()):
+            return self._localize_on(img, room, device_index, t_start,
+                                     prev_pose, recover_above)
+
+    def _localize_on(self, img: np.ndarray, room: Optional[str],
+                     device_index: int, t_start: float, prev_pose,
+                     recover_above: Optional[float]) -> Dict:
         room_scores = None
         if room == "auto":
             if prev_pose is not None:
@@ -929,7 +1003,8 @@ def main(argv=None) -> None:
                                                   dtype=np.uint8)
         for name in svc.rooms:
             t0 = time.time()
-            svc._localize_checked(noise, room=name)
+            for di in range(svc.devices):  # every query device
+                svc._localize_checked(noise, room=name, device_index=di)
             print(f"warmed {name} at {H}x{W} in {time.time() - t0:.1f}s",
                   flush=True)
     print(f"serving on {args.host}:{args.port} (room: {svc.room})",

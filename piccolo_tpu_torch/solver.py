@@ -24,6 +24,15 @@ which a capture cannot hold) and through the private ``_eager`` argument
 the same step runs as a Python loop, one op at a time; the graph replays
 that loop's kernels, so both give the same bits.
 
+On a ('cand', 'point') mesh (``parallel``) a step splits in two:
+each shard's loss sums and their pose gradient over its slice of the cloud
+(:func:`_shard_step`), and each cand group's combine on its lead device,
+which adds the shards' sums in shard order and takes the optimizer step
+(:func:`_combine_step`).  :func:`mesh_run` captures both halves on their
+own devices, cached like the single-device step (the key carries the
+device, the shard and the group), and copies between them; the CPU and
+``_eager`` run the same functions eagerly, with the same bits.
+
 Two opt-in speed modes have no reference counterpart: the pruned descent
 (every start for ``prune_iter`` iterations, then only the ``prune_keep``
 best finish the budget) and the multi-resolution descent (the first
@@ -34,6 +43,7 @@ of its own.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import math
@@ -45,7 +55,14 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from .device import as_tensor, resolve_device
-from .loss import Pose, pose_rotation, sampling_loss, sampling_loss_packed
+from .loss import (
+    Pose,
+    masked_mean,
+    pose_rotation,
+    sampling_loss,
+    sampling_loss_packed,
+    sampling_partials_packed,
+)
 from .ops.rotation import rot_from_ypr
 from .ops.sampling import (
     cast_packed_table,
@@ -55,7 +72,8 @@ from .ops.sampling import (
 from .optim import AdamPlateauState, adam_plateau_step, init_adam_plateau
 
 __all__ = ["SolveResult", "descend", "evaluate_poses", "solve",
-           "graph_stats", "descent_note", "GRAPH_MEM_FRACTION"]
+           "graph_stats", "descent_note", "GRAPH_MEM_FRACTION",
+           "ShardInputs", "MeshGroup", "mesh_run"]
 @dataclasses.dataclass
 class SolveResult:
     """All starts' final states, in input order."""
@@ -248,6 +266,36 @@ def _shapes(tensors):
                  for t in tensors)
 
 
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _capture(dev: torch.device, body):
+    """Warm ``body`` up with ``WARMUP_STEPS`` eager runs on a side stream,
+    then capture it on ``dev``; returns (graph, capture seconds with the
+    warm-up, bytes of the graph's memory pool)."""
+    t0 = time.perf_counter()
+    with torch.cuda.device(dev):
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_STEPS):
+                body()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        # a capture stream of this device: torch.cuda.graph's default one
+        # belongs to the device of the process's first capture
+        with torch.cuda.graph(graph, stream=torch.cuda.Stream(dev),
+                              capture_error_mode="thread_local"):
+            body()
+    capture_s = time.perf_counter() - t0
+    pool = tuple(graph.pool())
+    pool_bytes = sum(
+        seg["total_size"] for seg in torch.cuda.memory_snapshot()
+        if tuple(seg.get("segment_pool_id", ())) == pool)
+    return graph, capture_s, pool_bytes
+
+
 class _StepGraph:
     """One captured step over static buffers, and its replays.
 
@@ -263,7 +311,6 @@ class _StepGraph:
     """
 
     def __init__(self, key, x: StepInputs, s: StepStatics, params, state):
-        dev = params.t.device
         self.key = key
         self.number = next(_CAPTURES)
         self.lock = threading.Lock()
@@ -281,30 +328,16 @@ class _StepGraph:
                 dst.copy_(src)
             self.loss.copy_(loss)
 
-        t0 = time.perf_counter()
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP_STEPS):
-                body()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            body()
-        self.capture_s = time.perf_counter() - t0
-        pool = tuple(self.graph.pool())
-        self.pool_bytes = sum(
-            seg["total_size"] for seg in torch.cuda.memory_snapshot()
-            if tuple(seg.get("segment_pool_id", ())) == pool)
-        self.static_bytes = sum(
-            t.numel() * t.element_size()
-            for t in (*self.inputs, *self.bufs, self.loss) if t is not None)
+        self.graph, self.capture_s, self.pool_bytes = _capture(
+            params.t.device, body)
+        self.static_bytes = _nbytes(*self.inputs, *self.bufs, self.loss)
 
     def run(self, x: StepInputs, params, state, n: int, trajectory: bool):
         """Copy ``x``, ``params`` and ``state`` in, replay ``n`` times and
         return clones, as :func:`_run` does."""
-        with self.lock:
-            stream = torch.cuda.current_stream(self.loss.device)
+        dev = self.loss.device
+        with self.lock, torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev)
             if self.done is not None:  # a call on another stream
                 stream.wait_event(self.done)
             for dst, src in zip(self.inputs, x):
@@ -342,12 +375,18 @@ class _StepGraph:
 
 
 def _graph_for(x: StepInputs, s: StepStatics, params, state) -> _StepGraph:
-    """The cached graph for this shape key, captured on a miss.  The lookup
-    holds the cache lock only briefly: a capture runs outside it, so calls
-    on other keys go on meanwhile, and calls missing the same key wait for
-    its one capture (and capture it themselves if it failed)."""
-    dev = params.t.device
-    key = (dev, s, _shapes(x), _shapes(params.leaves()))
+    """The cached graph for this shape key, captured on a miss."""
+    key = (params.t.device, s, _shapes(x), _shapes(params.leaves()))
+    return _cached_graph(key, lambda: _StepGraph(key, x, s, params, state))
+
+
+def _cached_graph(key, make):
+    """The cached graph for ``key`` (its device first), ``make()`` on a
+    miss.  The lookup holds the cache lock only briefly: a capture runs
+    outside it, so calls on other keys go on meanwhile, and calls missing
+    the same key wait for its one capture (and capture it themselves if it
+    failed)."""
+    dev = key[0]
     while True:
         with _GRAPHS_LOCK:
             g = _GRAPHS.get(key)
@@ -361,7 +400,7 @@ def _graph_for(x: StepInputs, s: StepStatics, params, state) -> _StepGraph:
         pending.wait()
     try:
         with _CAPTURE_LOCK:
-            g = _StepGraph(key, x, s, params, state)
+            g = make()
         with _GRAPHS_LOCK:
             _COUNTS["captures"] += 1
             _COUNTS["recaptures"] += key in _EVICTED
@@ -445,6 +484,252 @@ def _descend_pruned(x, s, params, state, num_iter, prune_iter: int,
     losses = torch.cat([loss2, loss1[drop]])[inv]
     lrs = torch.cat([state2.lr, state1.lr[drop]])[inv]
     return params, losses, lrs
+
+
+# ---------------------------------------------------------------------------
+# the mesh descent: a cand group's starts over its point shards
+
+
+class ShardInputs(NamedTuple):
+    """One (cand, point) shard's inputs, on the shard's device: the packed
+    table of the main image and the shard's slice of the cloud."""
+
+    blocks: torch.Tensor
+    xyz: torch.Tensor
+    rgb: torch.Tensor
+    point_mask: Optional[torch.Tensor]
+
+
+class MeshGroup(NamedTuple):
+    """A cand group: its point shards' inputs in shard order, and the clamp
+    box on the group's lead device, where its optimizer state lives."""
+
+    shards: Tuple[ShardInputs, ...]
+    lo: torch.Tensor
+    hi: torch.Tensor
+
+
+def _pack_pose(params: Pose) -> torch.Tensor:
+    """(S, 6) f32 [t, yaw, pitch, roll]: the poses each shard reads."""
+    return torch.cat([params.t, params.yaw[:, None], params.pitch[:, None],
+                      params.roll[:, None]], dim=1)
+
+
+def _shard_step(x: ShardInputs, s: StepStatics,
+                pose6: torch.Tensor) -> torch.Tensor:
+    """A shard's loss sums at (S, 6) poses and their pose gradient, as
+    (S, 8) f64 [total, count, d total / d (t, yaw, pitch, roll)]: every value
+    is exact in f64, and one copy moves them to the group's lead."""
+    leaves = [pose6[:, 0:3].clone(), pose6[:, 3].clone(),
+              pose6[:, 4].clone(), pose6[:, 5].clone()]
+    leaves = [t.requires_grad_(True) for t in leaves]
+    with torch.enable_grad():
+        total, count = sampling_partials_packed(
+            Pose(*leaves), x.xyz, x.rgb, x.blocks, s.height, s.width,
+            x.point_mask, wrap=s.wrap)
+        g_t, g_y, g_p, g_r = torch.autograd.grad(total.sum(), leaves)
+    cols = [total.detach()[:, None], count[:, None], g_t, g_y[:, None],
+            g_p[:, None], g_r[:, None]]
+    return torch.cat([c.to(torch.float64) for c in cols], dim=1)
+
+
+def _combine_step(parts: torch.Tensor, params: Pose, state, lo, hi,
+                  patience: int, factor: float):
+    """A group's step from its shards' (P, S, 8) sums: totals, counts and
+    gradients added in shard order; the mean loss, and its gradient as the
+    gradients' sum over max(count, 1) (the count is piecewise constant in
+    the pose); then Adam + plateau and the translation clamp."""
+    total = parts[0, :, 0].to(torch.float32)
+    count = parts[0, :, 1].to(torch.int64)
+    grad = parts[0, :, 2:].to(torch.float32)
+    for p in range(1, parts.shape[0]):
+        total = total + parts[p, :, 0].to(torch.float32)
+        count = count + parts[p, :, 1].to(torch.int64)
+        grad = grad + parts[p, :, 2:].to(torch.float32)
+    loss = masked_mean(total, count)
+    grad = torch.where((count > 0)[:, None],
+                       grad / count.clamp_min(1)[:, None],
+                       torch.zeros_like(grad))
+    params, state = adam_plateau_step(
+        params, Pose(t=grad[:, 0:3], yaw=grad[:, 3], pitch=grad[:, 4],
+                     roll=grad[:, 5]),
+        state, loss, patience, factor)
+    params.t = torch.clamp(params.t, lo, hi)
+    return params, state, loss
+
+
+class _ShardGraph:
+    """A shard's :func:`_shard_step` captured over static buffers: the
+    inputs are copied in once a call, the poses before every replay, and
+    the packed sums are read out after it.  Groups whose shards share a
+    device and a point slice share this graph (it keeps no state between
+    replays)."""
+
+    def __init__(self, key, x: ShardInputs, s: StepStatics, pose6):
+        self.key = key
+        self.number = next(_CAPTURES)
+        self.lock = threading.Lock()
+        self.done = None
+        self.replays = 0
+        self.device = pose6.device
+        self.inputs = ShardInputs(*[None if t is None else t.clone()
+                                    for t in x])
+        self.pose6 = pose6.clone()
+        self.out = torch.empty((pose6.shape[0], 8), dtype=torch.float64,
+                               device=self.device)
+
+        def body():
+            self.out.copy_(_shard_step(self.inputs, s, self.pose6))
+
+        self.graph, self.capture_s, self.pool_bytes = _capture(self.device,
+                                                               body)
+        self.static_bytes = _nbytes(*self.inputs, self.pose6, self.out)
+
+    def stats(self) -> dict:
+        dev, kind, shard, statics, inputs, starts = self.key
+        return dict(capture=self.number, device=str(dev), kind=kind,
+                    shard=shard, height=statics.height, width=statics.width,
+                    starts=starts, table=inputs[0][0],
+                    table_dtype=str(inputs[0][1]), cloud=inputs[1][0],
+                    masked=inputs[3] is not None, stacked=False,
+                    capture_s=self.capture_s, pool_bytes=self.pool_bytes,
+                    static_bytes=self.static_bytes, replays=self.replays)
+
+
+class _CombineGraph:
+    """A group's :func:`_combine_step` captured on its lead device over the
+    shards' sums, the optimizer state and the poses it writes for the next
+    replay of the shards."""
+
+    def __init__(self, key, s: StepStatics, n_point: int, params, state, lo,
+                 hi):
+        self.key = key
+        self.number = next(_CAPTURES)
+        self.lock = threading.Lock()
+        self.done = None
+        self.replays = 0
+        self.device = lo.device
+        starts = params.yaw.shape[0]
+        self.parts = torch.zeros((n_point, starts, 8), dtype=torch.float64,
+                                 device=self.device)
+        self.bufs = [t.clone() for t in _state_leaves(params, state)]
+        self.lo, self.hi = lo.clone(), hi.clone()
+        self.loss = torch.empty_like(params.yaw)
+        self.pose6 = _pack_pose(params)
+
+        def body():
+            p, st, loss = _combine_step(self.parts, *_from_leaves(self.bufs),
+                                        self.lo, self.hi, s.patience,
+                                        s.factor)
+            for dst, src in zip(self.bufs, _state_leaves(p, st)):
+                dst.copy_(src)
+            self.loss.copy_(loss)
+            self.pose6.copy_(_pack_pose(p))
+
+        self.graph, self.capture_s, self.pool_bytes = _capture(self.device,
+                                                               body)
+        self.static_bytes = _nbytes(self.parts, *self.bufs, self.lo, self.hi,
+                                    self.loss, self.pose6)
+
+    def stats(self) -> dict:
+        dev, kind, group, n_point, _, _, leaves = self.key
+        return dict(capture=self.number, device=str(dev), kind=kind,
+                    group=group, shards=n_point, starts=tuple(leaves[1][0]),
+                    capture_s=self.capture_s, pool_bytes=self.pool_bytes,
+                    static_bytes=self.static_bytes, replays=self.replays)
+
+
+def _mesh_run_eager(groups, s, params, states, n):
+    out = []
+    for g, p, st in zip(groups, params, states):
+        loss = None
+        for _ in range(n):
+            pose6 = _pack_pose(p)
+            parts = torch.stack([
+                _shard_step(x, s, pose6.to(x.xyz.device)).to(g.lo.device)
+                for x in g.shards])
+            p, st, loss = _combine_step(parts, p, st, g.lo, g.hi, s.patience,
+                                        s.factor)
+        out.append((p, st, loss))
+    return out
+
+
+def mesh_run(groups, s: StepStatics, params, states, n: int,
+             eager: bool = False):
+    """``n`` steps of every cand group's descent; ``params[g]`` and
+    ``states[g]`` are group g's starts and optimizer state on its lead
+    device.  Returns per group (params, state, last loss).
+
+    Each step: the group's poses go to its shards, each shard's loss sums
+    and their gradient come back to the lead (:func:`_shard_step`), and the
+    lead adds them in shard order and takes the optimizer step
+    (:func:`_combine_step`).  On the card each shard's step and each
+    group's combine are captured graphs on their own devices, keyed and
+    cached like the single-device step; the copies between them run
+    outside the graphs, and torch's cross-device copies order the cards'
+    streams.  The poses go out to every shard before any shard replays, so
+    the shards of a group run at once.  On the CPU and with ``eager`` the
+    same functions run one op at a time, so both give the same bits."""
+    if not _graphed(groups[0].lo.device, eager):
+        return _mesh_run_eager(groups, s, params, states, n)
+    plan = []
+    for c, (g, p, st) in enumerate(zip(groups, params, states)):
+        pose6 = _pack_pose(p)
+        shard_graphs = []
+        for i, x in enumerate(g.shards):
+            dev = x.xyz.device
+            key = (dev, "mesh shard", i, s, _shapes(x), tuple(pose6.shape))
+            shard_graphs.append(_cached_graph(
+                key, lambda key=key, x=x, dev=dev: _ShardGraph(
+                    key, x, s, pose6.to(dev))))
+        key = (g.lo.device, "mesh combine", c, len(g.shards), s.patience,
+               s.factor, _shapes(p.leaves()))
+        combine = _cached_graph(
+            key, lambda key=key, g=g, p=p, st=st: _CombineGraph(
+                key, s, len(g.shards), p, st, g.lo, g.hi))
+        plan.append((shard_graphs, combine))
+    graphs = sorted({id(gr): gr for sgs, cg in plan
+                     for gr in (*sgs, cg)}.values(), key=lambda gr: gr.number)
+    with contextlib.ExitStack() as held:
+        for gr in graphs:  # one order for every caller: no deadlock
+            held.enter_context(gr.lock)
+        for gr in graphs:
+            if gr.done is not None:  # a call on another stream
+                torch.cuda.current_stream(gr.device).wait_event(gr.done)
+        filled = set()
+        for g, (sgs, cg), p, st in zip(groups, plan, params, states):
+            for x, sg in zip(g.shards, sgs):
+                if id(sg) not in filled:
+                    filled.add(id(sg))
+                    for dst, src in zip(sg.inputs, x):
+                        if dst is not None:
+                            dst.copy_(src)
+            for dst, src in zip(cg.bufs, _state_leaves(p, st)):
+                dst.copy_(src)
+            cg.lo.copy_(g.lo)
+            cg.hi.copy_(g.hi)
+            cg.pose6.copy_(_pack_pose(p))
+        for _ in range(n):
+            for sgs, cg in plan:
+                for sg in sgs:
+                    sg.pose6.copy_(cg.pose6)
+                for sg in sgs:
+                    with torch.cuda.device(sg.device):
+                        sg.graph.replay()
+                    sg.replays += 1
+                for i, sg in enumerate(sgs):
+                    cg.parts[i].copy_(sg.out)
+                with torch.cuda.device(cg.device):
+                    cg.graph.replay()
+                cg.replays += 1
+        out = []
+        for _, cg in plan:
+            p, st = _from_leaves([t.clone() for t in cg.bufs])
+            out.append((p, st, cg.loss.clone()))
+        for gr in graphs:
+            gr.done = torch.cuda.Event()
+            gr.done.record(torch.cuda.current_stream(gr.device))
+    return out
 
 
 def descend_packed(x: StepInputs, s: StepStatics, t0s, ypr0s, num_iter: int,

@@ -13,6 +13,8 @@ the JAX package's on a synthetic Stanford tree from
   * The forced compact and q8 slab plans agree with the auto run (the
     gather engine on the CPU) within 1e-3 m.
   * ``write_synth_stanford`` writes the script's tree.
+  * ``n_devices = 4`` (a 2 x 2 mesh) agrees with the JAX CLI's mesh run as
+    above; ``n_devices`` counts visible cards.
   * Without a card the CLI raises unless asked for the CPU, and the keys
     of later slices raise NotImplementedError (the staged path, descent
     prune and multires, OmniScenes and tracking run: test_torch_staged.py,
@@ -121,11 +123,13 @@ def test_port_cli_matches_jax_cli(synth_root, tmp_path):
     "fused=False", "sample_rate_for_init=2",
     "descent_prune_iter=8,descent_prune_keep=2",
     "descent_multires_iter=8,descent_multires_stride=2",
+    "n_devices=4",
 ])
 def test_port_cli_modes_match_jax_cli(synth_root, mode, tmp_path):
-    """The staged path (fused = False, sample_rate_for_init) and the
-    descent speed modes through both CLIs: the same rows, and the winners
-    within 1e-3 m at lr 0.01 and 20 iterations."""
+    """The staged path (fused = False, sample_rate_for_init), the descent
+    speed modes and a 2 x 2 mesh (n_devices = 4: JAX's virtual devices,
+    the port's logical CPU shards) through both CLIs: the same rows, and
+    the winners within 1e-3 m at lr 0.01 and 20 iterations."""
     from piccolo_tpu.main import main as jmain
 
     cfg = _write_cfg(str(tmp_path / "cfg.ini"), synth_root)
@@ -138,6 +142,7 @@ def test_port_cli_modes_match_jax_cli(synth_root, mode, tmp_path):
     th, trows = _rows(tlog)
     assert th == jh
     assert [r[:5] for r in trows] == [r[:5] for r in jrows]
+    assert len(trows) == 2
     for tr, jr in zip(trows, jrows):
         assert np.abs(_winner(tr) - _winner(jr)).max() < 1e-3, (tr, jr)
 
@@ -223,14 +228,43 @@ def test_cli_without_a_card_raises(auto_run, monkeypatch, tmp_path):
         tmain(["--config", cfg, "--log", str(tmp_path), "--no-tensorboard"])
 
 
-@pytest.mark.parametrize("override,match", [
-    ("n_devices=2", "multi-device"),
-    ("profile_dir=/nonexistent", "profiling"),
+@pytest.mark.parametrize("override,err,match", [
+    # n_devices runs since the multi-device slice; what stays refused is
+    # its combination with device_index (the case keeps its id)
+    pytest.param("n_devices=2,device_index=0", ValueError,
+                 "mutually exclusive", id="n_devices=2-multi-device"),
+    pytest.param("profile_dir=/nonexistent", NotImplementedError,
+                 "profiling", id="profile_dir=/nonexistent-profiling"),
     # the id the case had while the executable cache was planned with serving
-    pytest.param("exec_cache_dir=/nonexistent", "executable-cache",
+    pytest.param("exec_cache_dir=/nonexistent", NotImplementedError,
+                 "executable-cache",
                  id="exec_cache_dir=/nonexistent-serving"),
 ])
-def test_unported_keys_raise(auto_run, override, match, tmp_path):
+def test_unported_keys_raise(auto_run, override, err, match, tmp_path):
+    """Keys of later slices raise NotImplementedError naming the slice;
+    n_devices with device_index raises ValueError."""
     cfg, _, _ = auto_run
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(err, match=match):
         _port(cfg, str(tmp_path / "log"), override)
+
+
+def test_n_devices_counts_visible_cards(monkeypatch):
+    """On the card n_devices counts visible cards and raises beyond them;
+    "all" takes every one; on the CPU it counts logical shards."""
+    from piccolo_tpu_torch.config import make_config
+    from piccolo_tpu_torch.harness.localize import _maybe_mesh
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    cuda = torch.device("cuda")
+    with pytest.raises(ValueError, match="only 2 devices"):
+        _maybe_mesh(make_config(n_devices=4), cuda)
+    mesh = _maybe_mesh(make_config(n_devices="all"), cuda)
+    assert mesh.fingerprint() == ("cuda:0", "cuda:1")
+    assert mesh.shape == {"cand": 1, "point": 2}
+    assert _maybe_mesh(make_config(n_devices=1), cuda) is None
+    cpu = _maybe_mesh(make_config(n_devices=8, mesh_cand=4),
+                      torch.device("cpu"))
+    assert cpu.shape == {"cand": 4, "point": 2}
+    assert set(cpu.fingerprint()) == {"cpu"}
+    with pytest.raises(ValueError, match="logical shards"):
+        _maybe_mesh(make_config(n_devices="all"), torch.device("cpu"))

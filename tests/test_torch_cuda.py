@@ -14,7 +14,11 @@ tests of launches on a card that is not the current one need two cards.
 The descent's captured graph equals the eager loop bit for bit (default,
 prune, multires, trajectory), its results are clones that later replays
 leave alone, and pruned survivors and batched tracking streams stay within
-5e-3 and 1e-3 of their unbatched descents.
+5e-3 and 1e-3 of their unbatched descents.  On a mesh (``parallel``): a
+one-card mesh that repeats cuda:0 gives graphed and eager descents the same
+bits and the single-device query's starts and winner; a two-card mesh gives
+the one-card mesh's bits, and ``query_devices = 2`` serves on both cards
+(these two skip on one card).
 """
 
 import dataclasses
@@ -369,6 +373,10 @@ def test_served_request_equals_run_fused(dev):
 @pytest.fixture
 def descent_scene(dev):
     """A room on the card, a 128x256 query and 6 starts near its pose."""
+    return _descent_scene(dev)
+
+
+def _descent_scene(dev):
     from piccolo_tpu_torch.harness.localize import _order_bounds, _pad_cloud
 
     rng = np.random.default_rng(5)
@@ -462,14 +470,19 @@ def test_eviction_and_recapture(descent_scene, monkeypatch):
          torch.cat([y0, y0[:1]]))
     b = (img, xyz, rgb, mask, lo, hi, torch.cat([t0, t0[:2]]),
          torch.cat([y0, y0[:2]]))
+    # the LRU is per card: count this card's graphs (the two-card tests
+    # leave graphs on another one)
+    def graphs(stats):
+        return [g for g in stats["graphs"] if g["device"] == str(t0.device)]
+
     _descend(a, False)
-    assert len(solver.graph_stats()["graphs"]) == 1
+    assert len(graphs(solver.graph_stats())) == 1
     c0 = solver.graph_stats()
     _descend(b, False)  # evicts a's graph
     c1 = solver.graph_stats()
     got = _descend(a, False)
     c2 = solver.graph_stats()
-    assert len(c1["graphs"]) == 1 and len(c2["graphs"]) == 1
+    assert len(graphs(c1)) == 1 and len(graphs(c2)) == 1
     assert c1["evictions"] == c0["evictions"] + 1
     assert c2["evictions"] == c1["evictions"] + 1
     assert c2["captures"] == c1["captures"] + 1
@@ -618,3 +631,120 @@ def test_track_steps_batched_far_starts(descent_scene):
     print(f"far starts, streams from their single steps: "
           f"{[f'{g:.3g}' for g in gaps]}")
     assert max(gaps) <= 1e-2
+
+
+# ---------------------------------------------------------------------------
+# the mesh (parallel/): a one-card mesh repeats cuda:0, two-card meshes skip
+# on one card
+
+
+def _mesh_query(mesh, scene, eager=False, **kw):
+    """The sharded query on descent_scene's room from a 6 x 8 grid around
+    its pose, with a sharded f32 plan and HistPlan unless ``kw`` says."""
+    from piccolo_tpu_torch import build_hist_plan, parallel as P
+
+    img, xyz, rgb, mask, lo, hi, t0, _ = scene
+    trans = t0.cpu().numpy()
+    rot = np.stack([np.linspace(0, 6.28, 8, endpoint=False), np.zeros(8),
+                    np.zeros(8)], 1).astype(np.float32)
+    init = img[::2, ::2].contiguous()
+    plan = P.shard_grid_plan(mesh, xyz, rgb, mask, trans, rot, 64, 128)
+    hp = P.shard_hist_plan(mesh, build_hist_plan(
+        xyz, rgb, trans, rot, 64, 128, point_mask=mask, device=mesh.lead))
+    args = dict(num_intermediate=12, num_input=4, num_iter=40, lr=0.1,
+                patience=5, factor=0.8, plan=plan, hist_plan=hp)
+    args.update(kw)
+    return P.localize_query_sharded(
+        mesh, init, img, xyz, rgb, trans, rot, np.ones(6, bool), lo, hi,
+        mask, _eager=eager, **args)
+
+
+def _same_result(a, b):
+    return all(torch.equal(x, y) for x, y in (
+        (a.cand_t, b.cand_t), (a.cand_ypr, b.cand_ypr),
+        (a.cand_loss, b.cand_loss), (a.start_t, b.start_t)))
+
+
+@pytest.mark.parametrize("prune", [None, (15, 2)])
+def test_one_card_mesh_graph_equals_eager(descent_scene, prune):
+    """A 2 x 2 mesh whose four shards are all cuda:0: the captured shard
+    and combine graphs give the eager split's bits, and every shard's
+    kernels launch on card 0."""
+    from piccolo_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(2, 2, devices=["cuda:0"] * 4)
+    n_slab = slab.slab_group_sums_f32.by_card.get(0, 0)
+    n_bh = block_histogram.by_card.get(0, 0)
+    got = _mesh_query(mesh, descent_scene, descent_prune=prune)
+    want = _mesh_query(mesh, descent_scene, eager=True, descent_prune=prune)
+    torch.cuda.synchronize()
+    assert _same_result(got, want)
+    assert slab.slab_group_sums_f32.by_card[0] > n_slab
+    assert block_histogram.by_card[0] > n_bh
+
+
+def test_one_card_mesh_matches_single_device(descent_scene):
+    """The same query over the one-card mesh and on one device with the
+    same plans, at the JAX tests' settings (tests/test_parallel.py: 5
+    iterations at lr 0.1): the same starts and winner (stage 2 is exact;
+    stage 1's sums add in another order), candidate losses within 1e-3."""
+    from piccolo_tpu_torch import build_grid_plan, build_hist_plan
+    from piccolo_tpu_torch import localize_query
+    from piccolo_tpu_torch.parallel import make_mesh
+
+    img, xyz, rgb, mask, lo, hi, t0, _ = descent_scene
+    got = _mesh_query(make_mesh(2, 2, devices=["cuda:0"] * 4), descent_scene,
+                      num_iter=5, lr=0.1)
+    trans = t0.cpu().numpy()
+    rot = np.stack([np.linspace(0, 6.28, 8, endpoint=False), np.zeros(8),
+                    np.zeros(8)], 1).astype(np.float32)
+    one = localize_query(
+        img[::2, ::2].contiguous(), img, xyz, rgb, trans, rot,
+        np.ones(6, bool), lo, hi, mask, masked=True, num_intermediate=12,
+        num_input=4, num_iter=5, lr=0.1, patience=5, factor=0.8,
+        plan=build_grid_plan(xyz, rgb, mask, trans, rot, 64, 128,
+                             device=img.device),
+        hist_plan=build_hist_plan(xyz, rgb, trans, rot, 64, 128,
+                                  point_mask=mask, device=img.device),
+        device=img.device)
+    assert torch.equal(got.start_t, one.start_t)
+    assert int(got.winner) == int(one.winner)
+    assert float((got.cand_loss - one.cand_loss).abs().max()) < 1e-3
+
+
+def test_two_card_mesh_equals_one_card_mesh(two_cards):
+    """A 1 x 2 mesh over cuda:0 and cuda:1 gives the bits of the same mesh
+    on cuda:0 alone (the same kernels on the same shapes), and its second
+    shard's kernels launch on card 1."""
+    from piccolo_tpu_torch.parallel import make_mesh
+
+    scene = _descent_scene(two_cards[0])
+    n1 = slab.slab_group_sums_f32.by_card.get(1, 0)
+    two = _mesh_query(make_mesh(1, 2, devices=list(two_cards)), scene)
+    one = _mesh_query(make_mesh(1, 2, devices=["cuda:0", "cuda:0"]), scene)
+    torch.cuda.synchronize()
+    assert _same_result(two, one)
+    assert slab.slab_group_sums_f32.by_card[1] > n1
+
+
+def test_served_query_devices_on_two_cards(two_cards):
+    """query_devices = 2: requests answer on card 0 and card 1 in turn,
+    with the same bits."""
+    from piccolo_tpu_torch.serve import LocalizeService
+
+    rng = np.random.default_rng(5)
+    xyz, rgb = make_room(rng, n_per_wall=1500, texture="checker")
+    img = render_at(xyz, rgb, np.float32([0.4, -0.2, 0.15]),
+                    np.float32([0.9, 0, 0]), (128, 256), device="cpu").numpy()
+    img = (img * 255).astype(np.uint8)
+    svc = LocalizeService(
+        query_devices=2, xy_only=True, num_trans=16, yaw_only=True,
+        num_yaw=4, z_prior=None, num_split_h=4, num_split_w=4,
+        num_intermediate=8, num_input=4, num_iter=60, lr=0.1, patience=5,
+        factor=0.8, slab_init=True)
+    svc.load_room(xyz, rgb, name="box")
+    assert [c["device"] for c in svc._rooms["box"]] == list(two_cards)
+    a, b = svc.localize(img), svc.localize(img)
+    assert (a["device_index"], b["device_index"]) == (0, 1)
+    np.testing.assert_array_equal(a["t"], b["t"])
+    np.testing.assert_array_equal(a["cand_loss"], b["cand_loss"])

@@ -35,8 +35,20 @@ def test_import_loads_no_jax_and_no_reference_package():
     out = subprocess.run([sys.executable, "-c", _PROBE], check=True,
                          capture_output=True, text=True,
                          cwd=PKG.parent).stdout.split("\n")
-    assert int(out[0]) >= 39  # every submodule, tracking and serve too
+    assert int(out[0]) >= 42  # every submodule, tracking, serve, parallel
     assert out[1] == "[]"
+
+
+def test_parallel_imports_alone_without_jax():
+    """``piccolo_tpu_torch.parallel`` on its own pulls in no JAX and
+    nothing of the JAX package."""
+    probe = ("import sys, piccolo_tpu_torch.parallel as p; "
+             "print(sorted(k for k in sys.modules if k.split('.')[0] in "
+             "('jax', 'jaxlib', 'piccolo_tpu'))); print(p.make_mesh.__module__)")
+    out = subprocess.run([sys.executable, "-c", probe], check=True,
+                         capture_output=True, text=True,
+                         cwd=PKG.parent).stdout.split("\n")
+    assert out[:2] == ["[]", "piccolo_tpu_torch.parallel.sharding"]
 
 
 def test_sources_never_import_jax_or_the_reference_package():

@@ -16,6 +16,10 @@ on the CPU.
     package's does.
   * Tracked requests (``prev_pose``), ``recover_above``, and ``track_batch``
     draining concurrent tracked requests into one batch.
+  * ``query_devices = 2`` (two logical CPU replicas) answers requests in
+    turn, each bit-equal to the single-device service; ``n_devices = 4``
+    answers bit-equal to ``_run_fused`` over the same mesh and within 1e-3
+    m of the single-device service.
   * The configs serving refuses, naming their slice where one is planned.
 """
 
@@ -463,7 +467,11 @@ def test_track_batch_drains_concurrent_requests(scene):
     (dict(fused=False), ValueError, "fused pipeline only"),
     (dict(sample_rate_for_init=2), ValueError, "fused pipeline only"),
     (dict(visualize=True), ValueError, "per-iteration"),
-    (dict(query_devices=2), NotImplementedError, "multi-device slice"),
+    # query_devices runs since the multi-device slice; what stays refused
+    # is its combination with n_devices (the case keeps its id)
+    pytest.param(dict(query_devices=2, n_devices=2), ValueError,
+                 "mutually exclusive",
+                 id="kw3-NotImplementedError-multi-device slice"),
     (dict(exec_cache_dir="/nonexistent"), NotImplementedError,
      "executable-cache slice"),
 ])
@@ -488,3 +496,89 @@ def test_serve_main_parses_device_and_refuses_exec_cache(tmp_path):
     with pytest.raises(NotImplementedError, match="executable-cache"):
         main(["--config", str(ini), "--device", "cpu", "--exec-cache",
               str(tmp_path)])
+
+
+def test_query_devices_answer_in_turn(scene):
+    """Two query replicas answer requests in turn (warmed at load, each
+    under its own compute lock), each bit-equal to one device's answer."""
+    xyz, rgb, img, _ = scene
+    one = LocalizeService(device="cpu", **_CFG)
+    one.load_room(xyz, rgb, name="box")
+    want = one.localize(img)
+    svc = LocalizeService(device="cpu", query_devices=2, **_CFG)
+    assert svc.devices == 2 and len(svc._compute_locks) == 2
+    svc.load_room(xyz, rgb, name="box", warm_shape=(32, 64))
+    assert len(svc._rooms["box"]) == 2
+    outs = [svc.localize(img) for _ in range(3)]
+    # the warm-up pins each device and leaves the turn order alone
+    assert [o["device_index"] for o in outs] == [0, 1, 0]
+    for o in outs:
+        np.testing.assert_array_equal(o["t"], want["t"])
+        np.testing.assert_array_equal(o["cand_loss"], want["cand_loss"])
+
+
+def test_n_devices_request_runs_on_the_mesh(scene):
+    """n_devices = 4: a 2 x 2 mesh of logical CPU shards answers a request
+    bit-equal to _run_fused over that mesh, and within 1e-3 m of the
+    single-device service (the sums add in another order)."""
+    from piccolo_tpu_torch.harness.localize import _run_fused
+
+    xyz, rgb, img, _ = scene
+    svc = LocalizeService(device="cpu", n_devices=4, **_CFG)
+    assert svc.mesh.shape == {"cand": 2, "point": 2} and svc.devices == 1
+    svc.load_room(xyz, rgb, name="box")
+    out = svc.localize(img)
+    cache = svc._rooms["box"][0]
+    img_init, img_main, rgb_used, _ = svc._prepare(img, cache)
+    res, route = _run_fused(img_init, img_main, cache, rgb_used, svc.cfg,
+                            svc.init_dict, cache["grids"], svc.mesh,
+                            sync_plans=True)
+    assert route.startswith("mesh 2x2")
+    np.testing.assert_array_equal(out["t"], res.t.numpy())
+    np.testing.assert_array_equal(out["cand_loss"], res.cand_loss.numpy())
+    one = LocalizeService(device="cpu", **_CFG)
+    one.load_room(xyz, rgb, name="box")
+    want = one.localize(img)
+    assert out["winner"] == want["winner"]
+    assert np.abs(out["t"] - want["t"]).max() < 1e-3
+
+
+def test_budget_counts_sharded_plans_per_card(scene, plain_room):
+    """Under n_devices the plan budget is per card: another room's sharded
+    plans count what their busiest card holds, not their sum over the
+    mesh (a two-room service on a CPU mesh, then sharded plans on two
+    cards)."""
+    from piccolo_tpu_torch.config import cfg_get
+    from piccolo_tpu_torch.parallel import ShardedGridPlan
+
+    xyz, rgb, img, _ = scene
+    svc = LocalizeService(device="cpu", n_devices=4, max_rooms=2,
+                          slab_init=True, slab_bytes_cap=2**40, **_CFG)
+    svc.load_room(xyz, rgb, name="a")
+    svc.load_room(*plain_room, name="b")
+    svc.localize(img, room="a")
+    cache_a, cache_b = svc._rooms["a"][0], svc._rooms["b"][0]
+    sharded = [v for k, v in cache_a.items() if isinstance(k, tuple)
+               and k[0] == "slab_plan_sharded"]
+    assert len(sharded) == 1 and sharded[0].card_bytes == {
+        "cpu": sharded[0].nbytes}  # every shard of this mesh is on the CPU
+    assert svc._resident_plan_bytes(cache_b, 0) == sharded[0].nbytes
+
+    def on_two_cards(n):
+        return ShardedGridPlan([], 0, 64, 128, False, 8, 128, False, False,
+                               False, ("cuda:0", "cuda:1"),
+                               {"cuda:0": n, "cuda:1": n})
+
+    class TwoCardPlanes:  # a ShardedHistPlan's view of its cards
+        card_bytes = {"cuda:0": 100, "cuda:1": 50}
+
+    svc = _svc(max_rooms=2, slab_bytes_cap=1000)
+    svc.load_room(xyz, rgb, name="a")
+    svc.load_room(*plain_room, name="b")
+    cache_a, cache_b = svc._rooms["a"][0], svc._rooms["b"][0]
+    cache_a[("slab_plan_sharded", 64, 128)] = on_two_cards(300)
+    assert cfg_get(svc._budget_cfg(cache_b, 0), "slab_bytes_cap") == 700
+    cache_a[("hist_plan_sharded", 64, 128)] = TwoCardPlanes()
+    assert cfg_get(svc._budget_cfg(cache_b, 0), "slab_bytes_cap") == 600
+    cache_a[("slab_plan", 64, 128)] = type("OnTheCpu", (), {"nbytes": 800})()
+    assert cfg_get(svc._budget_cfg(cache_b, 0), "slab_bytes_cap") == 200
