@@ -150,6 +150,29 @@ Phases (any failure exits non-zero; each prints its seconds):
      (1.02 M points, 4096x2048) on one card and over the meshes (1, n),
      (2, n / 2) and (n, 1): each card's plan bytes before the build,
      s/query, t_err, peak memory by card.
+ 27. profile_dir (after phase 10): run D again with profile_dir set: one
+     torch.profiler trace a query, run D's rows but for time, no graph
+     captured or recaptured, and the slab and block-histogram kernels in
+     the traces as often as their wrappers counted (a `profile_dir:` line
+     of each trace's counts);
+ 28. the executable cache (after phase 21): two fresh CLI processes in turn
+     under configs/stanford.ini with one exec_cache_dir, empty before the
+     first: the first builds the three kernel libraries and the JPEG codec,
+     the second loads all four and gives the first's rows bit for bit but
+     for time; each one's seconds from its start to its first answer;
+ 29. init_distributed: two processes on the card join one group (backend
+     nccl) over a localhost coordinator and run the halves of phase 28's
+     sweep at once (query_shards = 2); the merged rows equal phase 28's
+     one-process rows but for time.  This proves the rendezvous and the
+     split, not NCCL: a sweep needs no collective, and two ranks cannot
+     share one card's NCCL communicator;
+ 30. visualize = True through the CLI in a process where PIL cannot be
+     imported: one query's GIF (the port's writer), 109 frames;
+ 31. profile_dir on OmniScenes (after phase 19): phase 19's sharpen_color
+     tracking run again with profile_dir set: one trace a frame (the
+     seed's fused query, the tracked frames with their device colour
+     prep), that run's rows but for time, no graph captured or recaptured,
+     and the kernels in the traces as often as their wrappers counted.
 On one card phases 25 and 26 print that they need two cards.
 Every descent above runs its captured graph (solver.py), and every
 profiled query reports its kernel and graph launches.  Then one line of
@@ -185,6 +208,7 @@ F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 SIZE = (6.0, 4.0, 3.0)
 CLI_QUERIES = 4
 OMNI_QUERIES = 4
+ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
                       "stanford.ini")
 OMNI_CONFIG = os.path.join(os.path.dirname(CONFIG), "omniscenes.ini")
@@ -1222,6 +1246,310 @@ def phase_cli(cli, dev):
     }
 
 
+# the port's kernels by their __global__ names in a trace, and the wrappers
+# that launch them
+OWN_KERNELS = {"slab_sums_kernel": "slab_group_sums_f32",
+               "block_histogram_kernel": "block_histogram",
+               "masked_histogram_kernel": "masked_histogram_counts"}
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+GRAPH_CALLS = ("cudaGraphLaunch", "cuGraphLaunch")
+# run D of phase 10: sharpen_color off, a forced f32 plan and a HistPlan
+RUN_D = ("sharpen_color=False,slab_init=True,slab_background_build=False,"
+         "slab_plan_cache=False")
+
+
+def _trace_counts(path):
+    """One Chrome trace of utils.maybe_trace: the port's kernels' device
+    launches by wrapper, all kernel events, and the host's kernel and graph
+    launch calls."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    own = dict.fromkeys(OWN_KERNELS.values(), 0)
+    n_kernels = n_launch = n_graph = 0
+    for e in events:
+        cat, name = e.get("cat", ""), e.get("name", "")
+        if cat == "kernel":
+            n_kernels += 1
+            for key, wrapper in OWN_KERNELS.items():
+                own[wrapper] += key in name
+        elif cat in ("cuda_runtime", "cuda_driver"):
+            n_launch += name in LAUNCH_CALLS
+            n_graph += name in GRAPH_CALLS
+    return dict(own=own, device_kernels=n_kernels, kernel_launches=n_launch,
+                graph_launches=n_graph)
+
+
+def phase_cli_profile(cli, dev):
+    """Run D of phase 10 again with profile_dir: one trace a query, the rows
+    of run D but for time, no graph captured or recaptured, and the port's
+    kernels counted in the traces as often as their wrappers counted."""
+    from piccolo_tpu_torch import solver
+    from piccolo_tpu_torch.kernels import slab_sampling as slab
+    from piccolo_tpu_torch.kernels.block_histogram import block_histogram
+    from piccolo_tpu_torch.kernels.histogram import masked_histogram_counts
+    from piccolo_tpu_torch.main import main as cli_main
+
+    base = os.path.dirname(cli["tree"])
+    traces = os.path.join(base, "traces")
+    log_dir = os.path.join(base, "log_D_profiled")
+    wrappers = {"slab_group_sums_f32": slab.slab_group_sums_f32,
+                "block_histogram": block_histogram,
+                "masked_histogram_counts": masked_histogram_counts}
+    for fn in wrappers.values():
+        fn.launches = 0
+    before = solver.graph_stats()
+    buf = io.StringIO()
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(buf):
+            cli_main(["--config", CONFIG, "--log", log_dir,
+                      "--no-tensorboard", "--device", dev.type, "--override",
+                      f"data_root={cli['tree']},{RUN_D},profile_dir={traces}"])
+    except Exception:
+        print(buf.getvalue()[-6000:], flush=True)
+        raise
+    wall = time.time() - t0
+    after = solver.graph_stats()
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    rows = _csv_rows(log_dir)
+    ref = _csv_rows(os.path.join(base, "log_D"))
+    names = sorted(glob.glob(os.path.join(traces, "*.pt.trace.json")))
+    counts = [_trace_counts(p) for p in names]
+    in_traces = {k: sum(c["own"][k] for c in counts) for k in wrappers}
+    log(f"cli profile_dir (run D): {len(names)} traces, "
+        f"{sum(os.path.getsize(p) for p in names)} B, wall {wall:.2f} s; "
+        f"captures {after['captures'] - before['captures']}, recaptures "
+        f"{after['recaptures'] - before['recaptures']}; wrapper launches "
+        f"{launches}; in the traces {in_traces}")
+    log("profile_dir: " + json.dumps(
+        [dict(trace=os.path.basename(p), **c) for p, c in zip(names, counts)]))
+    if len(names) != CLI_QUERIES:
+        raise AssertionError(f"{len(names)} traces for {CLI_QUERIES} queries")
+    if [r_[:9] for r_ in rows] != [r_[:9] for r_ in ref]:
+        raise AssertionError("the profiled run's rows differ from run D's: "
+                             f"{rows} against {ref}")
+    if (after["captures"], after["recaptures"]) != (before["captures"],
+                                                    before["recaptures"]):
+        raise AssertionError("the profiled run captured or recaptured a "
+                             f"graph: {before} -> {after}")
+    if in_traces != launches or not launches["slab_group_sums_f32"]:
+        raise AssertionError(f"kernels in the traces {in_traces}, launched "
+                             f"{launches}")
+    return counts
+
+
+def _first_answer_run(cmd, env, timeout=600):
+    """Run a CLI process; returns (rc, its output, seconds from its start to
+    its first answer (the first ``min_index`` line), wall seconds)."""
+    t0 = time.time()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, env=env,
+                            cwd=ROOT)
+    watchdog = threading.Timer(timeout, proc.kill)
+    watchdog.start()
+    first, lines = None, []
+    try:
+        for ln in proc.stdout:
+            lines.append(ln)
+            if first is None and ln.startswith("min_index :"):
+                first = time.time() - t0
+        rc = proc.wait()
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return rc, "".join(lines), first, time.time() - t0
+
+
+def _child_env():
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def phase_exec_cache(tree, dev):
+    """Two fresh CLI processes in turn under configs/stanford.ini with one
+    exec_cache_dir, empty before the first: the first builds the three
+    kernel libraries and the JPEG codec, the second loads all four (hits)
+    and gives the first's rows bit for bit but for time.  Returns the
+    first's rows (the one-process sweep of phase 29)."""
+    base = os.path.dirname(tree)
+    exec_dir = os.path.join(base, "exec_cache")
+    runs = []
+    for i in range(2):
+        log_dir = os.path.join(base, f"log_exec{i}")
+        rc, out, first, wall = _first_answer_run(
+            [sys.executable, "-m", "piccolo_tpu_torch.main", "--config",
+             CONFIG, "--log", log_dir, "--no-tensorboard", "--device",
+             dev.type, "--override",
+             f"data_root={tree},exec_cache_dir={exec_dir}"], _child_env())
+        if rc != 0:
+            print(out[-6000:], flush=True)
+            raise AssertionError(f"exec-cache process {i} exited {rc}")
+        line = next(ln for ln in out.splitlines()
+                    if ln.startswith("exec cache: "))
+        rows = _csv_rows(log_dir)
+        runs.append(dict(line=line, first=first, wall=wall, rows=rows,
+                         first_query_s=float(rows[0][9])))
+        log(f"exec cache process {i}: {line}; first answer {first:.2f} s "
+            f"after the process started (its query {rows[0][9]} s), wall "
+            f"{wall:.2f} s for {len(rows)} queries")
+    n_libs = 4 if dev.type == "cuda" else 1  # the CPU builds only the codec
+    if f"0 hit(s), {n_libs} built" not in runs[0]["line"]:
+        raise AssertionError(f"the first process did not build: {runs[0]}")
+    if f"{n_libs} hit(s), 0 built, 0 rebuilt" not in runs[1]["line"]:
+        raise AssertionError(f"the second process did not hit: {runs[1]}")
+    if [r_[:9] for r_ in runs[0]["rows"]] != [r_[:9] for r_ in runs[1]["rows"]]:
+        raise AssertionError("the exec-cache hit changed the rows")
+    log("exec cache: " + json.dumps(
+        {f"process {i}": dict(first_answer_s=r_["first"], wall_s=r_["wall"],
+                              first_query_s=r_["first_query_s"],
+                              cache=r_["line"]) for i, r_ in enumerate(runs)}))
+    return runs[0]["rows"]
+
+
+_DIST_WORKER = """
+import sys
+idx, coord, cfg, log, override, device = sys.argv[1:7]
+idx = int(idx)
+import torch.distributed as dist
+from piccolo_tpu_torch.parallel import init_distributed
+
+got = init_distributed(coord, 2, idx, device=device)  # the card: nccl
+assert got == idx == dist.get_rank(), (got, idx)
+assert dist.get_world_size() == 2
+assert dist.get_backend() == ("nccl" if device == "cuda" else "gloo")
+from piccolo_tpu_torch.main import main
+
+main(["--config", cfg, "--log", log, "--no-tensorboard", "--device", device,
+      "--override",
+      f"{override},query_shards=2,query_shard_index={got}"])
+# both halves written: a barrier over the coordinator (on one card two
+# ranks cannot share an NCCL communicator, so it is a gloo group's)
+dist.barrier(group=dist.new_group(backend="gloo"))
+dist.destroy_process_group()
+print("WORKER_OK", idx, flush=True)
+"""
+
+
+def phase_distributed(tree, one_process, dev):
+    """init_distributed in two processes on the card (nccl, a localhost
+    coordinator), each running half of the stanford.ini sweep of phase 28
+    at once: the merged rows equal phase 28's one-process rows but for
+    time."""
+    import socket
+
+    base = os.path.dirname(tree)
+    worker = os.path.join(base, "dist_worker.py")
+    with open(worker, "w") as f:
+        f.write(_DIST_WORKER)
+    s_ = socket.socket()
+    s_.bind(("localhost", 0))
+    coord = f"localhost:{s_.getsockname()[1]}"
+    s_.close()
+    logs, procs = [], []
+    for idx in range(2):
+        logs.append(os.path.join(base, f"log_dist{idx}"))
+        procs.append(subprocess.Popen(
+            [sys.executable, worker, str(idx), coord, CONFIG, logs[-1],
+             f"data_root={tree}", dev.type], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, env=_child_env(), cwd=ROOT))
+    outs = []
+    try:
+        for p in procs:
+            outs.append((p.communicate(timeout=600)[0], p.returncode))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for idx, (out, rc) in enumerate(outs):
+        if rc != 0 or f"WORKER_OK {idx}" not in out:
+            print(out[-6000:], flush=True)
+            raise AssertionError(f"distributed worker {idx} exited {rc}")
+    shards = [_csv_rows(d) for d in logs]
+    merged = sorted((r_ for rows in shards for r_ in rows),
+                    key=lambda r_: r_[1])
+    want = sorted(one_process, key=lambda r_: r_[1])
+    log(f"init_distributed: 2 processes ({dev.type}) on {coord}, "
+        f"{[len(r_) for r_ in shards]} queries each, times (s) "
+        f"{[[r_[9] for r_ in rows] for rows in shards]}")
+    if not all(shards) or len(merged) != len(want):
+        raise AssertionError(f"shards {shards} against {len(want)} rows")
+    if [r_[:9] for r_ in merged] != [r_[:9] for r_ in want]:
+        raise AssertionError("the merged sweep differs from the one-process "
+                             f"sweep: {merged} against {want}")
+
+
+_GIF_WORKER = """
+import sys
+sys.modules["PIL"] = None  # no PIL: importing it raises
+tree, cfg, log, device = sys.argv[1:5]
+from piccolo_tpu_torch.main import main
+
+main(["--config", cfg, "--log", log, "--no-tensorboard", "--device", device,
+      "--override",
+      f"data_root={tree},visualize=True,query_shards=4,query_shard_index=0"])
+print("WORKER_OK", flush=True)
+"""
+
+
+def _gif_frames_in(data: bytes) -> int:
+    """The image descriptors of a GIF89a, walking its blocks."""
+    if data[:6] != b"GIF89a" or data[-1:] != b"\x3b":
+        raise AssertionError("not a GIF89a file")
+
+    def skip(pos):
+        while data[pos]:
+            pos += data[pos] + 1
+        return pos + 1
+
+    flags = data[10]
+    pos = 13 + (3 * (2 << (flags & 7)) if flags & 0x80 else 0)
+    n = 0
+    while data[pos] != 0x3B:
+        if data[pos] == 0x21:
+            pos = skip(pos + 2)
+        elif data[pos] == 0x2C:
+            n += 1
+            local = data[pos + 9]
+            pos += 10 + (3 * (2 << (local & 7)) if local & 0x80 else 0)
+            pos = skip(pos + 1)
+        else:
+            raise AssertionError(f"unknown GIF block {data[pos]:#x}")
+    return n
+
+
+def phase_gif(tree, dev):
+    """visualize = True through the CLI in a process without PIL: the
+    query's optimisation GIF, 4 lead copies + 100 iterations + 5 holds."""
+    base = os.path.dirname(tree)
+    worker = os.path.join(base, "gif_worker.py")
+    with open(worker, "w") as f:
+        f.write(_GIF_WORKER)
+    log_dir = os.path.join(base, "log_gif")
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, worker, tree, CONFIG, log_dir,
+                           dev.type],
+                          capture_output=True, text=True, env=_child_env(),
+                          cwd=ROOT, timeout=600)
+    if proc.returncode != 0 or "WORKER_OK" not in proc.stdout:
+        print((proc.stdout + proc.stderr)[-6000:], flush=True)
+        raise AssertionError(f"the visualize run exited {proc.returncode}")
+    gifs = sorted(glob.glob(os.path.join(log_dir, "gifs", "*", "*.gif")))
+    if len(gifs) != 1:
+        raise AssertionError(f"visualize wrote {gifs}")
+    with open(gifs[0], "rb") as f:
+        data = f.read()
+    n = _gif_frames_in(data)
+    log(f"visualize gif without PIL: {os.path.relpath(gifs[0], log_dir)}, "
+        f"{len(data)} B, {n} frames, {time.time() - t0:.2f} s")
+    if n != 4 + 100 + 5:
+        raise AssertionError(f"{n} GIF frames, want 109")
+
+
 def phase_speed_modes(room, dev):
     """The library path with the descent's speed modes, prune (30, 2) and
     multires (70, 2), against the default descent: after a warm-up of each,
@@ -1861,6 +2189,73 @@ def _omni_tracking_run(omni, dev, fused, cli_main, kernels, colour, run,
                              f"the tracked frames' colour prep {colour}")
     return dict(launches=launches, colour=dict(colour),
                 tracked_s=tracked_s)
+
+
+def phase_omni_cli_profile(omni, dev):
+    """The sharpen_color tracking run of phase 19 again with profile_dir:
+    one trace a frame (the seed's fused query, the tracked frames with
+    their device colour prep), that run's rows but for time, no graph
+    captured or recaptured, and the port's kernels counted in the traces
+    as often as their wrappers counted."""
+    from piccolo_tpu_torch import solver
+    from piccolo_tpu_torch.kernels import slab_sampling as slab
+    from piccolo_tpu_torch.kernels.block_histogram import block_histogram
+    from piccolo_tpu_torch.kernels.histogram import masked_histogram_counts
+    from piccolo_tpu_torch.main import main as cli_main
+
+    base = os.path.dirname(omni["tree"])
+    traces = os.path.join(base, "omni_traces")
+    log_dir = os.path.join(base, "log_omni_tracking_profiled")
+    wrappers = {"slab_group_sums_f32": slab.slab_group_sums_f32,
+                "block_histogram": block_histogram,
+                "masked_histogram_counts": masked_histogram_counts}
+    for fn in wrappers.values():
+        fn.launches = 0
+    before = solver.graph_stats()
+    buf = io.StringIO()
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(buf):
+            cli_main(["--config", OMNI_CONFIG, "--log", log_dir,
+                      "--no-tensorboard", "--device", dev.type, "--override",
+                      f"data_root={omni['tree']},tracking=True,"
+                      f"sharpen_color=True,profile_dir={traces}"])
+    except Exception:
+        print(buf.getvalue()[-6000:], flush=True)
+        raise
+    wall = time.time() - t0
+    after = solver.graph_stats()
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    modes = [ln.split(":", 1)[1].strip() for ln in buf.getvalue().splitlines()
+             if ln.startswith("tracking :")]
+    rows = _omni_csv(log_dir)
+    ref = _omni_csv(os.path.join(base, "log_omni_tracking_sharpen_color"))
+    names = sorted(glob.glob(os.path.join(traces, "*.pt.trace.json")))
+    counts = [_trace_counts(p) for p in names]
+    in_traces = {k: sum(c["own"][k] for c in counts) for k in wrappers}
+    log(f"omniscenes cli profile_dir (tracking, sharpen_color): modes "
+        f"{modes}; {len(names)} traces, "
+        f"{sum(os.path.getsize(p) for p in names)} B, wall {wall:.2f} s; "
+        f"captures {after['captures'] - before['captures']}, recaptures "
+        f"{after['recaptures'] - before['recaptures']}; wrapper launches "
+        f"{launches}; in the traces {in_traces}")
+    log("omniscenes profile_dir: " + json.dumps(
+        [dict(trace=os.path.basename(p), **c) for p, c in zip(names, counts)]))
+    if modes != ["seed"] + ["tracked"] * (OMNI_QUERIES - 1):
+        raise AssertionError(f"omniscenes profiled run: modes {modes}")
+    if len(names) != OMNI_QUERIES:
+        raise AssertionError(f"{len(names)} traces for {OMNI_QUERIES} frames")
+    if [r_[:8] for r_ in rows] != [r_[:8] for r_ in ref]:
+        raise AssertionError("the profiled OmniScenes run's rows differ "
+                             f"from phase 19's: {rows} against {ref}")
+    if (after["captures"], after["recaptures"]) != (before["captures"],
+                                                    before["recaptures"]):
+        raise AssertionError("the profiled OmniScenes run captured or "
+                             f"recaptured a graph: {before} -> {after}")
+    if in_traces != launches or not launches["masked_histogram_counts"]:
+        raise AssertionError(f"kernels in the traces {in_traces}, launched "
+                             f"{launches}")
+    return counts
 
 
 def phase_omni_track_profile(o, dev, median_s):
@@ -3230,6 +3625,7 @@ def main():
         rows += timed("layout kernels", phase_layout_kernels, cli, dev)
         torch.cuda.empty_cache()
         launched = timed("cli", phase_cli, cli, dev)
+        timed("cli profile_dir", phase_cli_profile, cli, dev)
         cli_tree = cli["tree"]
         timed("cli stanford_parallel", phase_cli_parallel, cli_tree, dev)
         if torch.cuda.device_count() >= 2:
@@ -3239,6 +3635,10 @@ def main():
             log("mesh cli and serving: needs two cards (1 visible), not run")
         del cli
         torch.cuda.empty_cache()
+        one_process = timed("exec cache", phase_exec_cache, cli_tree, dev)
+        timed("init_distributed", phase_distributed, cli_tree, one_process,
+              dev)
+        timed("visualize gif", phase_gif, cli_tree, dev)
         timed("serving", phase_serving, dev, tmp, cli_tree)
         omni = timed("omniscenes tree", phase_omni_tree, tmp)
         o = timed("omniscenes room", phase_omni_room, dev, omni)
@@ -3249,6 +3649,8 @@ def main():
         track_rows = timed("omniscenes colour", phase_omni_colour, o, dev)
         tracking = timed("omniscenes tracking", phase_omni_tracking, omni,
                          dev, runs["fused"])
+        timed("omniscenes cli profile_dir", phase_omni_cli_profile, omni,
+              dev)
         timed("tracked frame profile", phase_omni_track_profile, o, dev,
               tracking["tracking"]["tracked_s"])
         timed("omniscenes batched tracking", phase_omni_batch, o, omni, dev)

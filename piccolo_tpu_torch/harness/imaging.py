@@ -134,7 +134,7 @@ def png_encode(img: np.ndarray, level: int = 6) -> bytes:
 
 
 _JPEG_SOI = b"\xff\xd8"
-_CODEC_SRC = Path(__file__).resolve().parent / "csrc" / "jpeg_codec.cpp"
+CODEC_SRC = Path(__file__).resolve().parent / "csrc" / "jpeg_codec.cpp"
 
 # SOFn markers the decoder refuses, by what they are
 _SOF_KINDS = {
@@ -151,7 +151,7 @@ _SOF_KINDS = {
 def _codec():
     from ..kernels._build import load_host_library
 
-    lib = load_host_library(_CODEC_SRC)
+    lib = load_host_library(CODEC_SRC)
     u8p = ctypes.POINTER(ctypes.c_uint8)
     ip = ctypes.POINTER(ctypes.c_int)
     lib.pj_decode.restype = ctypes.c_int

@@ -34,10 +34,14 @@ count is of visible cards, with ``--device cpu`` of logical shards on the
 CPU.  The room lives on the mesh's lead device, and its cloud, slab plan
 and HistPlan are laid out on the mesh once per room.
 
+``profile_dir`` writes one ``torch.profiler`` trace a query
+(``utils.maybe_trace``); ``exec_cache_dir`` builds or loads the process's
+kernel libraries and JPEG codec from the executable cache before the first
+query (``utils.exec_cache``) and prints what it found; ``debug_nans``
+turns on anomaly detection (``utils.enable_nan_debug``).
+
 The CPU rule of the JAX package (``auto`` plans off on the CPU backend)
-becomes: ``auto`` plans are off when the room lives on the CPU.  Config
-keys of later slices (profiling, the executable cache) raise
-``NotImplementedError`` naming the slice; none is ignored.
+becomes: ``auto`` plans are off when the room lives on the CPU.
 """
 
 from __future__ import annotations
@@ -66,6 +70,8 @@ from ..ops.quantile import cloud_bounds, outside_box
 from ..ops.rotation import rot_from_ypr
 from ..pipeline import localize_query
 from ..solver import descend, descent_note
+from ..utils import exec_cache
+from ..utils.profiling import enable_nan_debug, maybe_trace
 from .imaging import imread_rgb, resize
 from .metrics import (
     OMNISCENES_R_THRESH_DEG,
@@ -96,13 +102,6 @@ __all__ = ["localize_stanford", "localize_omniscenes", "get_init_dict",
 # of the previous room keeps its memory until it finishes, and two near-cap
 # plans must never be resident at once.
 _PLAN_BUILD_GATE = threading.Semaphore(1)
-
-
-def _unported(what: str, where: str):
-    return NotImplementedError(
-        f"{what} is not ported to piccolo_tpu_torch yet: it comes with the "
-        f"{where} slice of the port"
-    )
 
 
 def get_init_dict(cfg) -> Dict:
@@ -414,13 +413,8 @@ def _localize_one(b, cache, cfg, init_dict, fused: bool, want_traj: bool,
 
 
 def _check_config(cfg, init_dict) -> None:
-    """Refuse, loudly, the keys whose paths belong to later slices."""
+    """Refuse, loudly, the keys the port cannot honour."""
     check_criterion(cfg_get(cfg, "criterion", "loss_histogram"))
-    if cfg_get(cfg, "profile_dir"):
-        raise _unported("profile_dir (per-query traces)", "profiling")
-    if cfg_get(cfg, "exec_cache_dir"):
-        raise _unported("exec_cache_dir (the executable cache)",
-                        "executable-cache")
     if cfg_get(cfg, "gravity_aligned", True) is False:
         raise NotImplementedError(
             "gravity_aligned=False needs an alignment matrix estimator; the "
@@ -1134,7 +1128,11 @@ def _setup_run(cfg, device, log_dir, vis: bool = False):
     _seed_everything()
     if cfg_get(cfg, "debug_nans", False):
         # the reference's always-on anomaly detection (localize.py:94)
-        torch.autograd.set_detect_anomaly(True)
+        enable_nan_debug(True)
+    exec_dir = cfg_get(cfg, "exec_cache_dir")
+    if exec_dir:
+        # the process's libraries from the cache, before the first query
+        print(exec_cache.describe(exec_cache.warm(exec_dir, dev)), flush=True)
     os.makedirs(log_dir, exist_ok=True)
     return init_dict, dev, fused, mesh
 
@@ -1164,6 +1162,7 @@ def localize_stanford(cfg, writer=None, log_dir: str = "./log",
     Returns the accuracy."""
     vis = cfg_get(cfg, "visualize", False)
     init_dict, dev, fused, mesh = _setup_run(cfg, device, log_dir, vis)
+    profile_dir = cfg_get(cfg, "profile_dir")
     data_root = cfg_get(cfg, "data_root", "./data")
     area_num = cfg_get(cfg, "area")
     sample_rate = cfg_get(cfg, "sample_rate", 1)
@@ -1275,7 +1274,9 @@ def localize_stanford(cfg, writer=None, log_dir: str = "./log",
                     continue
 
                 start = time.time()
-                q = _localize_one(b, cache, cfg, init_dict, fused, vis, mesh)
+                with maybe_trace(profile_dir, name=img_name):
+                    q = _localize_one(b, cache, cfg, init_dict, fused, vis,
+                                      mesh)
                 k, t, R, loss_k = q["k"], q["t"], q["R"], q["loss"]
                 route, traj = q["route"], q["traj"]
                 elapsed = time.time() - start + b["prep_timed"]
@@ -1404,6 +1405,7 @@ def localize_omniscenes(cfg, writer=None, log_dir: str = "./log",
     that misses finishes the host prep from that head.
     """
     init_dict, dev, fused, mesh = _setup_run(cfg, device, log_dir)
+    profile_dir = cfg_get(cfg, "profile_dir")
     data_root = cfg_get(cfg, "data_root", "./data")
     split_name = cfg_get(cfg, "split_name", "extreme")
     room_name = cfg_get(cfg, "room_name")
@@ -1530,45 +1532,46 @@ def localize_omniscenes(cfg, writer=None, log_dir: str = "./log",
                     continue
 
                 start = time.time()
-                tracked = recovered = False
-                if tracking_on and track_prev["video"] == video_name:
-                    box = (cache["lo"], cache["hi"], cache["mask"])
-                    if b.get("fast"):
-                        t, ypr_next, R, loss_k = track_step_prepped_fetched(
-                            b["img_u8"], cache["xyz"], cache["rgb"],
-                            track_prev["t"], track_prev["ypr"], *box,
-                            cdf=cache.get("cdf"), sharpen=cache.get("sharpen"),
-                            device=cache["device"], **track_kw)
-                        route = "tracked: one warm-started descent, device colour prep"
-                    else:
-                        t, ypr_next, R, loss_k = track_step_fetched(
-                            b["img_main"], cache["xyz"], b["rgb_used"],
-                            track_prev["t"], track_prev["ypr"], *box,
-                            device=cache["device"], **track_kw)
-                        route = "tracked: one warm-started descent"
-                    if not track_gate.diverged(loss_k):
-                        tracked = True
-                        k = 0
-                        trans0 = track_prev["t"][None]
-                        rot0 = track_prev["ypr"][None]
-                        track_gate.accept(loss_k)
-                    else:
-                        recovered = True
-                if not tracked:
-                    if b.get("fast"):
-                        # the prediction missed (a recovery, or a seed after
-                        # an errored frame): finish the host prep here
-                        orig, img_init, img_main, rgb_used, _ = (
-                            finish_omniscenes_images(cfg, b["orig_u8"], cache))
-                        b.update(orig=orig, img_init=img_init,
-                                 img_main=img_main, rgb_used=rgb_used)
-                    q = _localize_one(b, cache, cfg, init_dict, fused, False,
-                                      mesh)
-                    k, t, R, loss_k = q["k"], q["t"], q["R"], q["loss"]
-                    trans0, rot0, route = q["trans0"], q["rot0"], q["route"]
-                    ypr_next = q["ypr"]
-                    if tracking_on:
-                        track_gate.reset()  # a fresh loss regime
+                with maybe_trace(profile_dir, name=img_name):
+                    tracked = recovered = False
+                    if tracking_on and track_prev["video"] == video_name:
+                        box = (cache["lo"], cache["hi"], cache["mask"])
+                        if b.get("fast"):
+                            t, ypr_next, R, loss_k = track_step_prepped_fetched(
+                                b["img_u8"], cache["xyz"], cache["rgb"],
+                                track_prev["t"], track_prev["ypr"], *box,
+                                cdf=cache.get("cdf"), sharpen=cache.get("sharpen"),
+                                device=cache["device"], **track_kw)
+                            route = "tracked: one warm-started descent, device colour prep"
+                        else:
+                            t, ypr_next, R, loss_k = track_step_fetched(
+                                b["img_main"], cache["xyz"], b["rgb_used"],
+                                track_prev["t"], track_prev["ypr"], *box,
+                                device=cache["device"], **track_kw)
+                            route = "tracked: one warm-started descent"
+                        if not track_gate.diverged(loss_k):
+                            tracked = True
+                            k = 0
+                            trans0 = track_prev["t"][None]
+                            rot0 = track_prev["ypr"][None]
+                            track_gate.accept(loss_k)
+                        else:
+                            recovered = True
+                    if not tracked:
+                        if b.get("fast"):
+                            # the prediction missed (a recovery, or a seed after
+                            # an errored frame): finish the host prep here
+                            orig, img_init, img_main, rgb_used, _ = (
+                                finish_omniscenes_images(cfg, b["orig_u8"], cache))
+                            b.update(orig=orig, img_init=img_init,
+                                     img_main=img_main, rgb_used=rgb_used)
+                        q = _localize_one(b, cache, cfg, init_dict, fused, False,
+                                          mesh)
+                        k, t, R, loss_k = q["k"], q["t"], q["R"], q["loss"]
+                        trans0, rot0, route = q["trans0"], q["rot0"], q["route"]
+                        ypr_next = q["ypr"]
+                        if tracking_on:
+                            track_gate.reset()  # a fresh loss regime
                 if tracking_on:
                     track_prev.update(
                         video=video_name,

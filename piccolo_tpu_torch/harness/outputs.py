@@ -1,6 +1,6 @@
 """Result artifacts: CSV rows, TensorBoard scalars, result images, GIFs
-(a copy of piccolo_tpu/harness/outputs.py; PNGs go through the port's own
-codec).
+(a copy of piccolo_tpu/harness/outputs.py; PNGs and GIFs go through the
+port's own writers).
 
 Output schemas are identical to the reference so downstream tooling works
 unchanged: CSV columns (``localize.py:132,346``), flattened-array cell
@@ -19,6 +19,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from .gif import encode_gif
 from .imaging import imwrite_rgb, resize, vconcat
 
 __all__ = ["fmt_array", "CsvSummary", "ScalarSummaries", "save_result_image", "save_gif"]
@@ -115,20 +116,11 @@ def save_result_image(
 
 
 def save_gif(path: str, frames_u8: List[np.ndarray], duration_ms: int = 150) -> None:
-    """Optimisation GIF from per-iteration frames (localize.py:281-288)."""
-    try:
-        from PIL import Image
-    except ImportError as exc:
-        raise ImportError(
-            "visualize = True writes GIFs with PIL, which is not installed "
-            "here; set visualize = False"
-        ) from exc
-
+    """Optimisation GIF from per-iteration frames (localize.py:281-288),
+    written by the port's own GIF writer (``gif.py``: one fixed 256-colour
+    palette, LZW)."""
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    imgs = [Image.fromarray(f) for f in frames_u8]
     # Reference pads the first frame 4 extra times and appends hold frames.
-    imgs = imgs[:1] * 4 + imgs + imgs[-1:] * 5
-    imgs[0].save(
-        path, format="gif", append_images=imgs[1:], save_all=True,
-        optimize=False, duration=duration_ms, loop=0,
-    )
+    frames = frames_u8[:1] * 4 + list(frames_u8) + frames_u8[-1:] * 5
+    with open(path, "wb") as f:
+        f.write(encode_gif(frames, duration_ms))

@@ -5,12 +5,20 @@ apply ``--override k=v[,k2=v2...]``, persist the effective config to
 ``<log>/config.ini``, open a TensorBoard writer when one is available, and
 dispatch on ``cfg.dataset`` to the harness.  ``--device`` picks the card
 (``cuda``, the default) or the CPU; without a card, ``cuda`` raises.
+
+``compilation_cache`` (default True) keeps the built kernel libraries for
+the next process, in ``compilation_cache_dir`` or the default build
+directory (``utils.enable_compilation_cache``); False builds them in a
+directory of this process's own, removed when it exits.
 """
 
 from __future__ import annotations
 
 import argparse
+import atexit
 import os
+import shutil
+import tempfile
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -42,9 +50,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> float:
-    from .config import apply_overrides, parse_ini, save_config
+    from .config import apply_overrides, cfg_get, parse_ini, save_config
     from .device import resolve_device
     from .harness.localize import localize_omniscenes, localize_stanford
+    from .utils import enable_compilation_cache
 
     args = build_parser().parse_args(argv)
     resolve_device(args.device)  # raises without a card unless --device cpu
@@ -54,6 +63,13 @@ def main(argv=None) -> float:
                "OmniScenes": localize_omniscenes}.get(cfg.dataset)
     if harness is None:
         raise ValueError(f"unknown dataset: {cfg.dataset!r}")
+
+    if cfg_get(cfg, "compilation_cache", True):
+        enable_compilation_cache(cfg_get(cfg, "compilation_cache_dir"))
+    else:
+        own = tempfile.mkdtemp(prefix="piccolo_build_")
+        atexit.register(shutil.rmtree, own, True)
+        enable_compilation_cache(own)
 
     os.makedirs(args.log, exist_ok=True)
     save_config(cfg, args.log)

@@ -1,5 +1,5 @@
-"""One query sharded over a ('cand', 'point') mesh of devices (port of
-piccolo_tpu.parallel; the multi-host ``init_distributed`` is not ported)."""
+"""One query sharded over a ('cand', 'point') mesh of devices, and a
+multi-host process group for sweeps (port of piccolo_tpu.parallel)."""
 
 from .fused import (
     ShardedGridPlan,
@@ -9,13 +9,20 @@ from .fused import (
     shard_grid_plan,
     shard_hist_plan,
 )
-from .sharding import Mesh, ShardedCloud, make_mesh, solve_sharded
+from .sharding import (
+    Mesh,
+    ShardedCloud,
+    init_distributed,
+    make_mesh,
+    solve_sharded,
+)
 
 __all__ = [
     "Mesh",
     "make_mesh",
     "solve_sharded",
     "localize_query_sharded",
+    "init_distributed",
     "shard_cloud",
     "shard_grid_plan",
     "shard_hist_plan",

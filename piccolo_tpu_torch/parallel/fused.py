@@ -409,6 +409,7 @@ def localize_query_sharded(
     seam_wrap: bool = False,
     criterion: str = "loss_histogram",
     descent_prune=None,
+    exec_cache_dir=None,
     _eager: bool = False,
 ) -> LocalizeResult:
     """Localize one panorama over a ('cand', 'point') mesh: the contract of
@@ -424,9 +425,14 @@ def localize_query_sharded(
     ``criterion="loss"`` skips stage 2.  ``descent_prune=(k, m)`` prunes
     the descent over the mesh (``sharding.descent_local``).  On the card
     the descent replays captured graphs; ``_eager=True`` runs the same
-    steps eagerly."""
+    steps eagerly.  ``exec_cache_dir``: the process's kernel libraries from
+    the executable cache (``utils.exec_cache.warm``, once a process)."""
     check_criterion(criterion)
     lead = mesh.lead
+    if exec_cache_dir:
+        from ..utils import exec_cache
+
+        exec_cache.warm(exec_cache_dir, lead)
     f32 = torch.float32
     if isinstance(xyz, ShardedCloud):
         if xyz.mesh_key != mesh.fingerprint():

@@ -19,14 +19,21 @@ captured graph.
 
 The mesh may repeat a device: every shard of a CPU mesh is ``cpu`` (the
 counterpart of the JAX tests' virtual devices), and a one-card mesh puts
-every shard on ``cuda:0``.  The JAX package's multi-host
-``init_distributed`` is not ported.
+every shard on ``cuda:0``.
+
+Across hosts, :func:`init_distributed` joins one process a host into a
+``torch.distributed`` process group; a sweep then splits its queries over
+the processes (``query_shards`` / ``query_shard_index``), which needs no
+collective, and each process's mesh spans its own host's cards.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
+import sys
+import warnings
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -51,7 +58,87 @@ from ..solver import (
 )
 
 __all__ = ["Mesh", "make_mesh", "ShardedCloud", "shard_cloud",
-           "solve_sharded", "descent_local"]
+           "solve_sharded", "descent_local", "init_distributed"]
+
+
+# Environment variables whose presence means "this process was launched as
+# part of a cluster" (torchrun, SLURM, or the JAX package's launchers): an
+# auto-detection that fails under any of them is a misconfiguration, not a
+# plain single-process run
+_CLUSTER_ENV_VARS = (
+    "MASTER_ADDR",
+    "WORLD_SIZE",
+    "TORCHELASTIC_RUN_ID",
+    "JAX_COORDINATOR_ADDRESS",
+    "COORDINATOR_ADDRESS",
+    "SLURM_STEP_NODELIST",
+)
+
+
+def init_distributed(coordinator_address: Optional[str] = None,
+                     num_processes: Optional[int] = None,
+                     process_id: Optional[int] = None,
+                     strict: bool = False, device="cuda") -> int:
+    """Join this process into a multi-host ``torch.distributed`` process
+    group (one process a host); the counterpart of the JAX package's
+    ``jax.distributed.initialize`` wrapper.  The backend is ``nccl`` for
+    the card and ``gloo`` for ``device="cpu"``.  Call once per process
+    before a sweep; then ``query_shards=torch.distributed.get_world_size(),
+    query_shard_index=`` the returned index split its queries.
+
+    Three argument paths, as in the JAX package:
+      * explicit: ``coordinator_address`` (``host:port`` of process 0, or a
+        ``tcp://`` URL) with ``num_processes`` and ``process_id``:
+        initialization errors propagate (torch cannot infer a missing count
+        or index over ``tcp://``, and says so);
+      * ``num_processes=1`` (no coordinator): a single-process no-op;
+      * none: auto-detect from the environment (``env://``: ``MASTER_ADDR``,
+        ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``, as torchrun sets them).
+        If that FAILS while cluster launch variables are present, the
+        process would silently run one N-th of a sharded sweep, so it warns
+        loudly (or, with ``strict=True``, raises).
+
+    Returns the process index (0 without a process group).
+    """
+    import torch.distributed as dist
+
+    if process_id is not None and coordinator_address is None:
+        raise ValueError(
+            "process_id without coordinator_address is meaningless: pass "
+            "both with num_processes, num_processes=1 alone, or nothing "
+            "(auto-detect)")
+    backend = "gloo" if torch.device(device).type == "cpu" else "nccl"
+    if coordinator_address is not None:
+        url = (coordinator_address if "://" in coordinator_address
+               else f"tcp://{coordinator_address}")
+        dist.init_process_group(
+            backend, init_method=url,
+            world_size=-1 if num_processes is None else num_processes,
+            rank=-1 if process_id is None else process_id)
+    elif num_processes is None:
+        try:
+            dist.init_process_group(backend, init_method="env://")
+        except Exception as exc:
+            present = [v for v in _CLUSTER_ENV_VARS if os.environ.get(v)]
+            if present:
+                if strict:
+                    raise
+                msg = (
+                    "torch.distributed auto-detection FAILED "
+                    f"({type(exc).__name__}: {exc}) although cluster launch "
+                    f"environment variables are set ({', '.join(present)}). "
+                    "Continuing SINGLE-PROCESS: a sharded sweep on this "
+                    "config would silently run 1/Nth of its queries per "
+                    "host. Pass explicit coordinator_address/num_processes/"
+                    "process_id, or strict=True to raise.")
+                warnings.warn(msg, RuntimeWarning, stacklevel=2)
+                print(f"WARNING: {msg}", file=sys.stderr, flush=True)
+            # else: a plain single-process environment, nothing to join
+    elif num_processes != 1:
+        raise ValueError(
+            f"num_processes={num_processes} needs coordinator_address and "
+            "process_id (explicit cluster path)")
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 class Mesh:

@@ -33,7 +33,8 @@ exclude each other: ``n_devices`` shards each query over a ('cand',
 every room on each of N cards and answers whole requests round-robin on
 them, each card under its own compute lock (on the CPU both count logical
 devices).  The executable cache (``exec_cache_dir``, ``--exec-cache``)
-belongs to a later slice of the port and raises.
+builds or loads the process's kernel libraries and JPEG codec when the
+service starts (``utils.exec_cache``), so a restart skips the compilers.
 """
 
 from __future__ import annotations
@@ -60,7 +61,6 @@ from .harness.localize import (
     _order_bounds,
     _pad_cloud,
     _run_fused,
-    _unported,
     _use_fused,
     get_init_dict,
     prepare_omniscenes_images,
@@ -114,10 +114,13 @@ class LocalizeService:
                 "serving returns no per-iteration artifacts; drop "
                 "visualize=True from the config"
             )
-        if cfg_get(cfg, "exec_cache_dir"):
-            raise _unported("exec_cache_dir (the executable cache)",
-                            "executable-cache")
         dev = resolve_device(device)
+        self.exec_cache = None  # what the executable cache found, if on
+        exec_dir = cfg_get(cfg, "exec_cache_dir")
+        if exec_dir:
+            from .utils import exec_cache
+
+            self.exec_cache = exec_cache.warm(exec_dir, dev)
         self._devices = self._resolve_query_devices(cfg, dev)
         # n_devices: each query sharded over a mesh; its rooms live on the
         # mesh's lead device
@@ -970,8 +973,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "shape (e.g. 512x1024): plans build and kernels "
                          "load before the first real query")
     ap.add_argument("--exec-cache", metavar="DIR",
-                    help="the executable cache (not ported yet: raises); "
-                         "shorthand for --override exec_cache_dir=DIR")
+                    help="executable-cache directory: a restart loads the "
+                         "built kernel libraries and JPEG codec instead of "
+                         "compiling them (utils/exec_cache.py).  Shorthand "
+                         "for --override exec_cache_dir=DIR")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8321)
     ap.add_argument("--data-root",
@@ -988,13 +993,19 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     from .config import apply_overrides
+    from .utils import enable_compilation_cache
 
     args = build_parser().parse_args(argv)
+    enable_compilation_cache()
     cfg = apply_overrides(parse_ini(args.config), args.override)
     if args.exec_cache:
         cfg = apply_overrides(cfg, f"exec_cache_dir={args.exec_cache}")
     svc = LocalizeService(cfg, max_rooms=args.max_rooms,
                           max_pending=args.max_pending, device=args.device)
+    if svc.exec_cache is not None:
+        from .utils import exec_cache
+
+        print(exec_cache.describe(svc.exec_cache), flush=True)
     for pcd in args.pcd:
         svc.load_room_pcd(pcd)
     if args.warm:

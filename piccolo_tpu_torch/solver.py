@@ -431,6 +431,15 @@ def _evict(dev, keep) -> None:
             _EVICTED.add(k)
 
 
+def clear_graphs() -> None:
+    """Drop every cached graph (a call still replaying one keeps it alive);
+    the next call of each key captures it again, not counted as a
+    recapture."""
+    with _GRAPHS_LOCK:
+        _GRAPHS.clear()
+        _EVICTED.clear()
+
+
 def graph_stats() -> dict:
     """``graphs``: one dict per cached graph, least recently used first (its
     capture's number in this process, its key's shapes, capture seconds

@@ -25,10 +25,12 @@ from .loss import Pose, transform_cloud
 from .ops.pano import render_pano
 from .ops.rotation import rot_from_ypr
 
-__all__ = ["make_room", "random_pose_inside", "render_at", "RoomScene",
+__all__ = ["make_room", "make_cluttered_room", "random_pose_inside",
+           "pose_outside_occluders", "render_at", "RoomScene",
            "make_scene", "scene_pose", "scene_cloud", "raycast_pano",
-           "write_synth_stanford", "write_synth_omniscenes",
-           "edge_plan_group"]
+           "IMAGE_REALISM_ARMS", "CLOUD_REALISM_ARMS", "apply_image_realism",
+           "apply_cloud_realism", "write_synth_stanford",
+           "write_synth_omniscenes", "edge_plan_group"]
 
 _WALL_FACES = ((0, 1), (0, -1), (1, 1), (1, -1), (2, 1), (2, -1))
 
@@ -83,6 +85,59 @@ def make_room(rng: np.random.Generator, n_per_wall: int = 4000,
     return np.concatenate(pts), np.concatenate(cols)
 
 
+def make_cluttered_room(
+    rng: np.random.Generator,
+    n_per_wall: int = 4000,
+    size: Tuple[float, float, float] = (6.0, 4.0, 3.0),
+    n_occluders: int = 3,
+    n_per_occluder: int = 2000,
+    texture: str = "checker",
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A box room with coloured box occluders standing inside it: real
+    occlusion and parallax.  Returns (xyz, rgb, occluders), occluders a
+    (K, 2, 3) array of axis-aligned (lo, hi) corners."""
+    xyz, rgb = make_room(rng, n_per_wall=n_per_wall, size=size, texture=texture)
+    pts, cols, boxes = [xyz], [rgb], []
+    half = np.array(size, np.float32) / 2
+    for k in range(n_occluders):
+        dims = (0.3 + rng.random(3) * np.array([0.7, 0.7, 1.2])).astype(
+            np.float32
+        )
+        # stand on the floor somewhere not hugging a wall
+        center_xy = (rng.random(2).astype(np.float32) - 0.5) * (
+            np.array(size[:2], np.float32) - dims[:2] - 0.6
+        )
+        lo = np.array(
+            [center_xy[0] - dims[0] / 2, center_xy[1] - dims[1] / 2, -half[2]],
+            np.float32,
+        )
+        hi = lo + dims
+        boxes.append(np.stack([lo, hi]))
+        hue = np.zeros(3, np.float32)
+        hue[k % 3] = 0.8
+        hue[(k + 1) % 3] = 0.3 + 0.4 * rng.random()
+        for axis in range(3):
+            for sign in (0, 1):
+                m = n_per_occluder // 6
+                p = (lo + rng.random((m, 3)).astype(np.float32) * dims)
+                p[:, axis] = hi[axis] if sign else lo[axis]
+                uv = p[:, [d for d in range(3) if d != axis]]
+                c = np.clip(
+                    hue[None, :]
+                    + 0.25 * np.sin(12.0 * uv[:, :1])
+                    + 0.15 * uv[:, 1:2],
+                    0.05,
+                    1.0,
+                ).astype(np.float32)
+                pts.append(p)
+                cols.append(np.broadcast_to(c, (m, 3)).copy())
+    return (
+        np.concatenate(pts),
+        np.concatenate(cols),
+        np.stack(boxes) if boxes else np.zeros((0, 2, 3), np.float32),
+    )
+
+
 def random_pose_inside(rng: np.random.Generator,
                        size: Tuple[float, float, float] = (6.0, 4.0, 3.0),
                        margin: float = 0.35,
@@ -101,6 +156,28 @@ def random_pose_inside(rng: np.random.Generator,
             np.float32,
         )
     return t, ypr
+
+
+def pose_outside_occluders(
+    rng: np.random.Generator,
+    occluders: np.ndarray,
+    size: Tuple[float, float, float] = (6.0, 4.0, 3.0),
+    margin: float = 0.35,
+    clearance: float = 0.25,
+    yaw_only: bool = True,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """random_pose_inside, rejecting poses inside (or hugging) an occluder."""
+    grown = occluders.copy()
+    if grown.size:
+        grown[:, 0] -= clearance
+        grown[:, 1] += clearance
+    for _ in range(200):
+        t, ypr = random_pose_inside(rng, size, margin, yaw_only)
+        if not grown.size or not bool(
+            np.any(np.all((t >= grown[:, 0]) & (t <= grown[:, 1]), axis=1))
+        ):
+            return t, ypr
+    raise RuntimeError("no free pose found among occluders")
 
 
 def render_at(xyz, rgb, t, ypr, resolution: Tuple[int, int] = (256, 512),
@@ -361,6 +438,92 @@ _ROOM_SIZES = [
     (8.0, 3.5, 3.2),
     (4.5, 6.5, 3.0),
 ]
+
+
+# -- capture-realism degradations ------------------------------------------
+#
+# The ray-cast oracle renders ideal captures; real Stanford2D-3D-S and
+# OmniScenes data carry sensor noise, JPEG blocking, motion blur,
+# vignetting and scanner defects (depth noise, scan holes).  These degrade
+# a rendered query image or a sampled cloud, drawing the JAX package's
+# numbers from the same generator.
+
+IMAGE_REALISM_ARMS = ("noise", "jpeg", "blur", "vignette")
+CLOUD_REALISM_ARMS = ("depth-noise", "holes")
+
+
+def apply_image_realism(u8: np.ndarray, arm: str, val: float,
+                        rng: np.random.Generator) -> np.ndarray:
+    """Degrade a uint8 RGB capture like a real camera or codec would.
+
+    Arms (val = strength):
+      noise:    per-pixel Gaussian sensor noise, sigma = val in [0, 1]
+                units (0.02 ~ a mid-ISO handheld capture).
+      jpeg:     encode and decode at quality = int(val), with the port's
+                baseline 4:2:0 codec (``harness.imaging``; the JAX package
+                uses cv2's libjpeg, whose tables and rounding it shares).
+      blur:     horizontal motion blur, kernel length = int(val) px,
+                wrapping across the panorama's seam.
+      vignette: elevation falloff, gain 1 - val * (2*row/(H-1) - 1)^2.
+    """
+    img = np.asarray(u8)
+    if img.dtype != np.uint8:
+        raise ValueError("apply_image_realism expects a uint8 capture")
+    if arm == "noise":
+        f = img.astype(np.float32) / 255.0
+        f = f + rng.normal(0.0, float(val), f.shape).astype(np.float32)
+        return np.clip(np.round(f * 255.0), 0, 255).astype(np.uint8)
+    if arm == "jpeg":
+        from .harness.imaging import jpeg_decode, jpeg_encode
+
+        return jpeg_decode(jpeg_encode(img, int(val)))
+    if arm == "blur":
+        # horizontal box blur with periodic wrap: the azimuth is periodic
+        k = max(3, int(val) | 1)
+        f = img.astype(np.float32)
+        acc = np.zeros_like(f)
+        for off in range(-(k // 2), k // 2 + 1):
+            acc += np.roll(f, off, axis=1)
+        return np.clip(np.round(acc / k), 0, 255).astype(np.uint8)
+    if arm == "vignette":
+        H = img.shape[0]
+        y = (2.0 * np.arange(H, dtype=np.float32) / max(H - 1, 1)) - 1.0
+        gain = 1.0 - float(val) * y * y
+        f = img.astype(np.float32) * gain[:, None, None]
+        return np.clip(np.round(f), 0, 255).astype(np.uint8)
+    raise ValueError(f"unknown image realism arm {arm!r} "
+                     f"(have {IMAGE_REALISM_ARMS})")
+
+
+def apply_cloud_realism(xyz: np.ndarray, rgb: np.ndarray, arm: str,
+                        val: float, rng: np.random.Generator):
+    """Degrade a sampled cloud like a real scanner would.
+
+    Arms (val = strength):
+      depth-noise: Gaussian positional noise, sigma = val metres.
+      holes:       remove val of the points as 8 random spherical caps
+                   (glass, occlusion shadows, registration gaps).
+    """
+    xyz = np.asarray(xyz, np.float32)
+    rgb = np.asarray(rgb, np.float32)
+    if arm == "depth-noise":
+        return (
+            xyz + rng.normal(0.0, float(val), xyz.shape).astype(np.float32),
+            rgb,
+        )
+    if arm == "holes":
+        n = xyz.shape[0]
+        target = int(n * float(val))
+        keep = np.ones(n, bool)
+        per = max(1, target // 8)
+        for _ in range(8):
+            c = xyz[rng.integers(0, n)]
+            d = np.linalg.norm(xyz - c, axis=1)
+            d[~keep] = np.inf  # already removed: never recount
+            keep[np.argsort(d)[:per]] = False
+        return xyz[keep], rgb[keep]
+    raise ValueError(f"unknown cloud realism arm {arm!r} "
+                     f"(have {CLOUD_REALISM_ARMS})")
 
 
 def _stanford_euler_for(R: np.ndarray) -> list:

@@ -18,8 +18,8 @@ the iterations.  An opt-in extension with no reference counterpart:
 
 Results come to the host as ONE packed 16-float copy (t, ypr, rot, loss).
 Entry points run on the card unless the caller passes ``device="cpu"``.
-The executable cache (``exec_cache_dir``) belongs to a later slice of the
-port and raises.
+``exec_cache_dir`` loads the process's kernel libraries and JPEG codec from
+the executable cache (``utils.exec_cache``) before the first step.
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ from .solver import (
     descend,
     descend_packed,
 )
+from .utils import exec_cache
 
 __all__ = [
     "TrackResult",
@@ -87,13 +88,12 @@ class TrackResult(NamedTuple):
                            # recovery callable was available
 
 
-def _no_exec_cache(exec_cache_dir) -> None:
+def _use_exec_cache(exec_cache_dir, device) -> None:
+    """``exec_cache_dir``: this process's kernel libraries and JPEG codec
+    from the executable cache (``utils.exec_cache.warm``: once a process
+    and directory, then a dictionary lookup)."""
     if exec_cache_dir:
-        raise NotImplementedError(
-            "exec_cache_dir (the executable cache) is not ported to "
-            "piccolo_tpu_torch yet: it comes with the executable-cache slice "
-            "of the port"
-        )
+        exec_cache.warm(exec_cache_dir, device)
 
 
 def track_step(img, xyz, rgb, prev_t, prev_ypr, lo, hi, point_mask=None, *,
@@ -108,7 +108,7 @@ def track_step(img, xyz, rgb, prev_t, prev_ypr, lo, hi, point_mask=None, *,
     inter-frame motion.  Use the full budget (100, 0.1, 5, 0.8) when frames
     may be far apart.
     """
-    _no_exec_cache(exec_cache_dir)
+    _use_exec_cache(exec_cache_dir, device)
     return descend(
         img, xyz, rgb,
         np.asarray(prev_t, np.float32).reshape(1, 3),
@@ -179,8 +179,8 @@ def track_step_prepped_fetched(img_u8, xyz, rgb, prev_t, prev_ypr, lo, hi,
       Everything else: as :func:`track_step`.
     Returns ``(t (3,), ypr (3,), rot (3, 3), loss)`` on the host.
     """
-    _no_exec_cache(exec_cache_dir)
     dev = resolve_device(device)
+    _use_exec_cache(exec_cache_dir, dev)
     img, rgb = _prep_frame(img_u8, cdf, sharpen,
                            as_tensor(rgb, dev, torch.float32), dev)
     return _unpack_fetched(descend(
@@ -220,8 +220,8 @@ def track_steps_batched(imgs, xyz, rgb, prev_ts, prev_yprs, lo, hi,
     Returns:
       a list of K ``(t (3,), ypr (3,), rot (3, 3), loss)`` host tuples.
     """
-    _no_exec_cache(exec_cache_dir)
     dev = resolve_device(device)
+    _use_exec_cache(exec_cache_dir, dev)
     imgs = as_tensor(imgs, dev, torch.float32)
     K, H, W, _ = imgs.shape
     dtype = resolve_descent_table(table_dtype, H, W)
@@ -316,8 +316,8 @@ class Tracker:
                  num_iter: int = 30, lr: float = 0.03, patience: int = 3,
                  factor: float = 0.5, table_dtype: str = "auto",
                  wrap: bool = False, exec_cache_dir=None, device="cuda"):
-        _no_exec_cache(exec_cache_dir)
         dev = resolve_device(device)
+        _use_exec_cache(exec_cache_dir, dev)
         self._cloud = (
             as_tensor(xyz, dev, torch.float32),
             as_tensor(rgb, dev, torch.float32),

@@ -15,8 +15,8 @@ the JAX package's on a synthetic Stanford tree from
   * ``write_synth_stanford`` writes the script's tree.
   * ``n_devices = 4`` (a 2 x 2 mesh) agrees with the JAX CLI's mesh run as
     above; ``n_devices`` counts visible cards.
-  * Without a card the CLI raises unless asked for the CPU, and the keys
-    of later slices raise NotImplementedError (the staged path, descent
+  * Without a card the CLI raises unless asked for the CPU; profile_dir
+    and exec_cache_dir give the plain run's rows (the staged path, descent
     prune and multires, OmniScenes and tracking run: test_torch_staged.py,
     test_torch_omniscenes.py and test_torch_tracking.py).
 """
@@ -228,24 +228,57 @@ def test_cli_without_a_card_raises(auto_run, monkeypatch, tmp_path):
         tmain(["--config", cfg, "--log", str(tmp_path), "--no-tensorboard"])
 
 
+@pytest.fixture
+def library_store():
+    """Restore the process's library store after a test that points it at
+    an executable cache."""
+    from piccolo_tpu_torch.kernels import _build
+    from piccolo_tpu_torch.utils import exec_cache
+
+    store = _build.library_store()
+    yield
+    _build.use_store(store)
+    exec_cache.clear_memo()
+
+
 @pytest.mark.parametrize("override,err,match", [
     # n_devices runs since the multi-device slice; what stays refused is
     # its combination with device_index (the case keeps its id)
     pytest.param("n_devices=2,device_index=0", ValueError,
                  "mutually exclusive", id="n_devices=2-multi-device"),
-    pytest.param("profile_dir=/nonexistent", NotImplementedError,
-                 "profiling", id="profile_dir=/nonexistent-profiling"),
-    # the id the case had while the executable cache was planned with serving
-    pytest.param("exec_cache_dir=/nonexistent", NotImplementedError,
-                 "executable-cache",
+    # profile_dir and exec_cache_dir run since the profiling and
+    # executable-cache slice: each case runs the sweep with its key (the
+    # cases keep their ids)
+    pytest.param("profile_dir={tmp}/traces", None, "",
+                 id="profile_dir=/nonexistent-profiling"),
+    pytest.param("exec_cache_dir={tmp}/exec", None, "",
                  id="exec_cache_dir=/nonexistent-serving"),
 ])
-def test_unported_keys_raise(auto_run, override, err, match, tmp_path):
-    """Keys of later slices raise NotImplementedError naming the slice;
-    n_devices with device_index raises ValueError."""
-    cfg, _, _ = auto_run
-    with pytest.raises(err, match=match):
-        _port(cfg, str(tmp_path / "log"), override)
+def test_unported_keys_raise(auto_run, override, err, match, tmp_path,
+                             library_store, capsys):
+    """n_devices with device_index raises ValueError.  profile_dir writes
+    one trace a query and exec_cache_dir builds the JPEG codec into the
+    cache; either way the rows equal the plain run's but for time."""
+    cfg, auto_log, _ = auto_run
+    override = override.format(tmp=tmp_path)
+    if err is not None:
+        with pytest.raises(err, match=match):
+            _port(cfg, str(tmp_path / "log"), override)
+        return
+    _port(cfg, str(tmp_path / "log"), override)
+    header, rows = _rows(str(tmp_path / "log"))
+    _, want = _rows(auto_log)
+    t_col = header.index("time (s)")
+    assert ([[c for i, c in enumerate(r) if i != t_col] for r in rows]
+            == [[c for i, c in enumerate(r) if i != t_col] for r in want])
+    if override.startswith("profile_dir"):
+        traces = sorted(os.listdir(tmp_path / "traces"))
+        assert len(traces) == len(rows) == 2
+        assert all(t.endswith(".pt.trace.json") for t in traces)
+    else:
+        assert "exec cache: " in capsys.readouterr().out
+        assert any(n.startswith("jpeg_codec-") and n.endswith(".so")
+                   for n in os.listdir(tmp_path / "exec"))
 
 
 def test_n_devices_counts_visible_cards(monkeypatch):

@@ -18,7 +18,9 @@ leave alone, and pruned survivors and batched tracking streams stay within
 one-card mesh that repeats cuda:0 gives graphed and eager descents the same
 bits and the single-device query's starts and winner; a two-card mesh gives
 the one-card mesh's bits, and ``query_devices = 2`` serves on both cards
-(these two skip on one card).
+(these two skip on one card).  The executable cache builds the three
+kernel libraries and the JPEG codec, then hits all four; a graph captured
+under ``utils.maybe_trace`` gives the bits of one captured without it.
 """
 
 import dataclasses
@@ -748,3 +750,67 @@ def test_served_query_devices_on_two_cards(two_cards):
     assert (a["device_index"], b["device_index"]) == (0, 1)
     np.testing.assert_array_equal(a["t"], b["t"])
     np.testing.assert_array_equal(a["cand_loss"], b["cand_loss"])
+
+
+def test_exec_cache_builds_then_hits_on_the_card(dev, tmp_path):
+    """A fresh executable-cache directory builds the three kernel libraries
+    and the JPEG codec; a second warm-up loads all four."""
+    from piccolo_tpu_torch.kernels import _build
+    from piccolo_tpu_torch.utils import exec_cache
+
+    store = _build.library_store()
+    try:
+        exec_cache.clear_memo()
+        first = exec_cache.warm(tmp_path, dev)
+        names = sorted(n.split("-")[0] for n in first["built"])
+        assert names == ["block_histogram", "jpeg_codec", "masked_histogram",
+                         "slab_sampling"] and not first["hits"]
+        exec_cache.clear_memo()
+        second = exec_cache.warm(tmp_path, dev)
+        assert sorted(second["hits"]) == sorted(first["built"])
+        assert not second["built"] and not second["rebuilt"]
+    finally:
+        _build.use_store(store)
+        exec_cache.clear_memo()
+
+
+def test_capture_under_the_profiler_gives_the_same_bits(descent_scene,
+                                                        tmp_path):
+    """A graph captured inside utils.maybe_trace, and a replay of it there,
+    give the bits of a graph captured without the profiler."""
+    from piccolo_tpu_torch import solver
+    from piccolo_tpu_torch.utils import maybe_trace
+
+    solver.clear_graphs()
+    want = _descend(descent_scene, False)
+    solver.clear_graphs()
+    before = solver.graph_stats()["captures"]
+    for _ in range(2):  # a capture, then a replay, each profiled
+        with maybe_trace(str(tmp_path)):
+            got = _descend(descent_scene, False)
+            torch.cuda.synchronize()
+        for a, b in zip(got[0].leaves(), want[0].leaves()):
+            assert torch.equal(a, b)
+        assert torch.equal(got[1], want[1])
+    assert solver.graph_stats()["captures"] == before + 1
+    assert len(list(tmp_path.glob("*.pt.trace.json"))) == 2
+
+
+def test_trace_holds_its_block_after_many_sessions(dev, tmp_path):
+    """Thirty traces in turn, each of one block-histogram launch: every
+    trace holds that kernel's record, behind maybe_trace's warm-up."""
+    import json
+
+    from piccolo_tpu_torch.utils import maybe_trace
+
+    rng = np.random.default_rng(3)
+    ids = torch.as_tensor(rng.integers(0, 512, (8, 4096), dtype=np.int32),
+                          device=dev)
+    mask = torch.ones(8, 4096, device=dev)
+    for k in range(30):
+        with maybe_trace(str(tmp_path), name=f"b{k}"):
+            block_histogram(ids, mask, 512)
+    for path in tmp_path.glob("*.pt.trace.json"):
+        events = json.loads(path.read_text())["traceEvents"]
+        names = [e["name"] for e in events if e.get("cat") == "kernel"]
+        assert sum("block_histogram_kernel" in n for n in names) == 1, path

@@ -65,6 +65,19 @@ def plain_room():
                      texture="plain")
 
 
+@pytest.fixture
+def library_store():
+    """Restore the process's library store after a test that points it at
+    an executable cache."""
+    from piccolo_tpu_torch.kernels import _build
+    from piccolo_tpu_torch.utils import exec_cache
+
+    store = _build.library_store()
+    yield
+    _build.use_store(store)
+    exec_cache.clear_memo()
+
+
 def _svc(**kw):
     return LocalizeService(device="cpu", **{**_FULL, **kw})
 
@@ -472,10 +485,19 @@ def test_track_batch_drains_concurrent_requests(scene):
     pytest.param(dict(query_devices=2, n_devices=2), ValueError,
                  "mutually exclusive",
                  id="kw3-NotImplementedError-multi-device slice"),
-    (dict(exec_cache_dir="/nonexistent"), NotImplementedError,
-     "executable-cache slice"),
+    # exec_cache_dir runs since the executable-cache slice: the service
+    # builds its JPEG codec into the cache (the case keeps its id)
+    pytest.param(dict(exec_cache_dir="{tmp}"), None, "",
+                 id="kw4-NotImplementedError-executable-cache slice"),
 ])
-def test_refused_configs(kw, err, match):
+def test_refused_configs(kw, err, match, tmp_path, library_store):
+    if err is None:
+        kw = {k: v.format(tmp=tmp_path) for k, v in kw.items()}
+        svc = _svc(**kw)
+        assert svc.exec_cache["dir"] == str(tmp_path.resolve())
+        assert any(n.startswith("jpeg_codec-") for n in svc.exec_cache["built"]
+                   + svc.exec_cache["hits"])
+        return
     with pytest.raises(err, match=match):
         _svc(**kw)
 
@@ -486,16 +508,28 @@ def test_service_without_a_card_raises(monkeypatch):
         LocalizeService(**_CFG)
 
 
-def test_serve_main_parses_device_and_refuses_exec_cache(tmp_path):
+def test_serve_main_parses_device_and_refuses_exec_cache(tmp_path,
+                                                         monkeypatch,
+                                                         library_store,
+                                                         capsys):
+    """The service's CLI parses --device, and --exec-cache (refused before
+    the executable-cache slice) loads its libraries from the cache before
+    it serves."""
+    from piccolo_tpu_torch import serve
     from piccolo_tpu_torch.serve import build_parser, main
 
     ini = tmp_path / "cfg.ini"
     ini.write_text("[Default]\ndataset = Stanford2D-3D-S\n")
     args = build_parser().parse_args(["--config", str(ini), "--device", "cpu"])
     assert args.device == "cpu" and args.port == 8321
-    with pytest.raises(NotImplementedError, match="executable-cache"):
-        main(["--config", str(ini), "--device", "cpu", "--exec-cache",
-              str(tmp_path)])
+    served = []
+    monkeypatch.setattr(serve, "serve_forever",
+                        lambda svc, *a, **k: served.append(svc))
+    main(["--config", str(ini), "--device", "cpu", "--exec-cache",
+          str(tmp_path / "exec")])
+    assert len(served) == 1
+    assert served[0].exec_cache["dir"] == str((tmp_path / "exec").resolve())
+    assert "exec cache: " in capsys.readouterr().out
 
 
 def test_query_devices_answer_in_turn(scene):

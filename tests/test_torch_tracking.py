@@ -294,17 +294,31 @@ def test_ypr_from_rot_roundtrip():
         np.testing.assert_allclose(R2, R, atol=1e-5)
 
 
-def test_track_kwargs_and_refusals():
+def test_track_kwargs_and_refusals(tmp_path):
     from piccolo_tpu_torch.config import make_config
 
     assert T.track_kwargs(make_config(track_lr=0.01, seam_wrap=True)) == dict(
         num_iter=30, lr=0.01, patience=3, factor=0.5, table_dtype="auto",
         wrap=True)
+    # exec_cache_dir (refused before the executable-cache slice) loads the
+    # process's libraries from the cache and changes no result
+    from piccolo_tpu_torch.kernels import _build
+    from piccolo_tpu_torch.utils import exec_cache
+
     z = np.zeros((4, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="executable-cache slice"):
-        T.track_step(np.zeros((8, 16, 3), np.float32), z, z, z[0], z[0],
-                     z[0], z[0] + 1, exec_cache_dir="/nonexistent",
-                     device="cpu")
+    args = (np.zeros((8, 16, 3), np.float32), z, z, z[0], z[0], z[0],
+            z[0] + 1)
+    store = _build.library_store()
+    try:
+        got = T.track_step(*args, exec_cache_dir=str(tmp_path), device="cpu")
+        assert _build.library_store().path == tmp_path.resolve()
+    finally:
+        _build.use_store(store)
+        exec_cache.clear_memo()
+    want = T.track_step(*args, device="cpu")
+    for f in ("t", "ypr", "rot", "loss", "lr"):
+        torch.testing.assert_close(getattr(got, f), getattr(want, f),
+                                   rtol=0, atol=0)
 
 
 # ---------------------------------------------------------------------------
@@ -408,3 +422,35 @@ def test_omniscenes_cli_tracking_device_prep(omni_root, tmp_path, capsys):
     assert hroutes[1:] == ["tracked: one warm-started descent"] * 2
     np.testing.assert_array_equal(fast[0], host[0])  # the seed: one path
     assert np.abs(fast - host).max() < 5e-3
+
+
+def test_omniscenes_cli_tracking_profiled(omni_root, tmp_path, capsys):
+    """profile_dir over the OmniScenes loop writes one trace a frame and
+    changes no row but for time.  The run covers what the trace wraps: the
+    seed's fused query, a tracked frame with the device colour prep, and a
+    recovery (track_window 1 and track_recover_ratio 0: the third frame's
+    loss exceeds 0 x the median of one accepted loss, so it diverges)."""
+    cfg = _write_cfg(str(tmp_path / "cfg.ini"), omni_root)
+    ov = (f"data_root={omni_root},main_downsample_h=1,main_downsample_w=1,"
+          "sharpen_color=True,descent_table=float32,track_window=1,"
+          "track_recover_ratio=0")
+    traces = tmp_path / "traces"
+    got = []
+    for name, extra in (("plain", ""), ("profiled", f",profile_dir={traces}")):
+        modes, routes, _ = _run(tmain, cfg, str(tmp_path / name), ov + extra,
+                                capsys, ("--device", "cpu"))
+        with open(tmp_path / name / "omniscenes_results.csv",
+                  newline="") as f:
+            rows = list(csv.reader(f))
+        t_col = rows[0].index("time (s)")
+        got.append((modes, routes,
+                    [[c for i, c in enumerate(r) if i != t_col]
+                     for r in rows]))
+    assert got[0] == got[1]
+    modes, routes, rows = got[1]
+    assert modes == ["seed", "tracked", "recovered"]
+    assert routes[1] == "tracked: one warm-started descent, device colour prep"
+    assert len(rows) == 4
+    names = sorted(os.listdir(traces))
+    assert len(names) == 3
+    assert all(n.endswith(".pt.trace.json") for n in names)
