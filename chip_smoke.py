@@ -13,12 +13,17 @@ Phases (any failure exits non-zero; each prints its seconds):
      images) and its slab GridPlan and HistPlan, built on the card;
   4. kernels vs their plain PyTorch versions at the main path's shapes
      (the f32 group-sum kernel on every group of the room's plan, counts
-     exact and sums rtol 1e-5; block histogram bit-exact), with CUDA-event
-     timings, the bound and the one-call yardstick;
+     exact and sums rtol 1e-5; block histogram bit-exact, on uniform ids at
+     (320, 8192)), with CUDA-event timings, the bound and the one-call
+     yardstick; every block-histogram row also gives its CTA threads and
+     an empty kernel launched the same way, the floor of one launch's
+     time;
   5. a small room on the card against the same query on the CPU;
   6. the library's main path: 1 warm-up and 5 timed queries through
      localize_query; median t_err must be below 0.05 m and both kernels
-     (slab_group_sums_f32, block_histogram) must have launched;
+     (slab_group_sums_f32, block_histogram) must have launched; the
+     warm-up's stage-2 call (coherent ids from the HistPlan) is recorded,
+     and the block histogram held bit-exact and timed on it;
   7. one more query under torch.profiler: device time per stage, the idle
      share and the heaviest kernels;
   8. the CLI's room: a ray-cast Stanford tree (1 room, 4 queries, 60,000
@@ -389,6 +394,78 @@ def _bound(nbytes, ops):
                                        else "operations")
 
 
+def _bh_extras(ids, num_bins):
+    """The block histogram's launch at ids' shape: its CTA threads and the
+    device ms of an empty kernel launched the same way, the floor under
+    which cuda_ms cannot time one launch."""
+    from piccolo_tpu_torch.kernels import block_histogram as bh
+
+    B, N = ids.shape
+    sms = torch.cuda.get_device_properties(ids.device).multi_processor_count
+    with torch.cuda.device(ids.device):
+        empty = cuda_ms(lambda: bh._empty_launch(B, N, num_bins, ids.device))
+    return dict(threads=bh.cta_threads(B, sms), empty_launch_ms=empty)
+
+
+def _run_stats(ids, mask, num_bins):
+    """The share of counted entries (mask != 0, id in range) and counted
+    entries a run of equal ids among consecutive entries: how coherent a
+    block histogram's rows are (uniform ids give ~1 a run)."""
+    v = torch.where((mask != 0) & (ids >= 0) & (ids < num_bins), ids,
+                    torch.full_like(ids, -1))
+    starts = torch.ones_like(v, dtype=torch.bool)
+    starts[:, 1:] = v[:, 1:] != v[:, :-1]
+    counted = v >= 0
+    return dict(counted_share=float(counted.float().mean()),
+                counted_per_run=float(counted.sum())
+                / max(1, int((starts & counted).sum())))
+
+
+def _recorded_bh_row(name, path, ids, mask, num_bins, launches, n_q):
+    """A kernels row of the block histogram on a recorded call's inputs:
+    bit-exact against the plain version, timed beside it, torch.bincount,
+    the bound and an empty launch of the same geometry."""
+    from piccolo_tpu_torch.kernels.block_histogram import (
+        block_histogram,
+        block_histogram_plain,
+    )
+
+    got = block_histogram(ids, mask, num_bins)
+    want = block_histogram_plain(ids, mask, num_bins)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: block histogram differs from the "
+                             f"plain version at {tuple(ids.shape)}")
+    B, N = ids.shape
+    # bincount's input: the same counts from in-range ids and 0/1 weights
+    flat = (torch.arange(B, device=ids.device)[:, None] * num_bins
+            + ids.clamp(0, num_bins - 1)).reshape(-1)
+    weights = ((mask != 0) & (ids >= 0) & (ids < num_bins)).to(
+        torch.float32).reshape(-1)
+    bound_ms, bound_by = _bound(ids.numel() * 8 + B * num_bins * 4,
+                                ids.numel() * 2)
+    row = dict(
+        name=name, route="cuda",
+        source="piccolo_tpu_torch/kernels/csrc/block_histogram.cu",
+        replaces="piccolo_tpu/kernels/histogram_mxu.py:90", path=path,
+        launches=launches, launches_per_query=launches / n_q,
+        max_abs_err=float((got - want).abs().max()),
+        ms=cuda_ms(lambda: block_histogram(ids, mask, num_bins)),
+        plain_ms=cuda_ms(lambda: block_histogram_plain(ids, mask, num_bins)),
+        bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=cuda_ms(lambda: torch.bincount(
+            flat, weights=weights, minlength=B * num_bins)),
+        **_bh_extras(ids, num_bins))
+    stats = _run_stats(ids, mask, num_bins)
+    log(f"{name} at {(B, N)}: bit-exact; {row['ms']:.4f} ms (plain "
+        f"{row['plain_ms']:.4f}, bincount {row['library_ms']:.4f}, bound "
+        f"{bound_ms:.4f} by {bound_by}, empty launch "
+        f"{row['empty_launch_ms']:.4f}, threads {row['threads']}); "
+        f"counted {stats['counted_share']:.3f} of entries, "
+        f"{stats['counted_per_run']:.2f} a run")
+    return row
+
+
 # per real sample: 4 weights (6 ops), lerp (24), black test, distance and
 # square sum (9), sqrt, two adds: ~42 f32 operations
 F32_OPS_PER_SAMPLE = 42
@@ -488,11 +565,16 @@ def phase_kernels(room, dev):
         bound_ms=bh_bound, bound_by=bh_by,
         library_ms=cuda_ms(lambda: torch.bincount(
             flat, weights=mask.reshape(-1), minlength=320 * 512)),
+        **_bh_extras(ids, 512),
     )
     for row in (slab_row, bh_row):
         log(f"{row['name']}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f} ms, "
             f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}, library "
-            f"{row['library_ms']})")
+            f"{row['library_ms']}"
+            + (f", at (320, 8192) on uniform ids, {row['threads']} threads "
+               f"a CTA, an empty kernel launched the same way "
+               f"{row['empty_launch_ms']:.4f} ms" if row is bh_row else "")
+            + ")")
     return [slab_row, bh_row]
 
 
@@ -910,7 +992,9 @@ def phase_main_path(room, dev):
         R_gt = rot_from_ypr(torch.tensor(gt_ypr)).numpy()
         return elapsed, float(np.linalg.norm(t - gt_t)), rot_err_rad(rot, R_gt)
 
-    one(100)  # warm-up
+    stage2 = {}
+    with _recording_stage2(stage2):
+        one(100)  # warm-up, its stage-2 call recorded
     slab_group_sums_f32.launches = 0
     block_histogram.launches = 0
     rows = [one(200 + i) for i in range(5)]
@@ -928,7 +1012,12 @@ def phase_main_path(room, dev):
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"{name} never launched on the main path")
-    return launches, med_s
+    # the library query's own stage-2 call: coherent ids from the HistPlan
+    (_, _, nbins), (ids, mask) = next(iter(stage2.items()))
+    bh_row = _recorded_bh_row(
+        "block_histogram.library", "library main path (phase 6), 5 queries",
+        ids, mask, nbins, launches["block_histogram"], 5)
+    return launches, med_s, bh_row
 
 
 BACKWARD = "autograd backward (the descent's gradient)"
@@ -1835,12 +1924,17 @@ def phase_omni_kernels(o, dev):
         plain_ms=cuda_ms(lambda: block_histogram_plain(ids, msk), reps=5),
         bound_ms=bh_bound, bound_by=bh_by,
         library_ms=cuda_ms(lambda: torch.bincount(
-            flat, weights=msk.reshape(-1), minlength=B * _NB), reps=5))
+            flat, weights=msk.reshape(-1), minlength=B * _NB), reps=5),
+        **_bh_extras(ids, _NB))
     del flat
+    stats = _run_stats(ids, msk, _NB)
     log(f"omniscenes block histogram vs plain at {(B, N)} from the live "
         f"splat of {k1} candidates: bit-exact; {bh_row['ms']:.4f} ms (plain "
         f"{bh_row['plain_ms']:.4f}, bincount {bh_row['library_ms']:.4f}, "
-        f"bound {bh_bound:.4f} by {bh_by}, {ids.numel() * 8 + B * _NB * 4} B)")
+        f"bound {bh_bound:.4f} by {bh_by}, {ids.numel() * 8 + B * _NB * 4} B, "
+        f"empty launch {bh_row['empty_launch_ms']:.4f}, threads "
+        f"{bh_row['threads']}); counted {stats['counted_share']:.3f} of "
+        f"entries, {stats['counted_per_run']:.2f} a run")
     if o["hplan"] is not None:
         hp = o["hplan"]
         planes = hp.planes[idx.clamp_max(hp.n_pairs - 1)].to(torch.int32)
@@ -2045,10 +2139,16 @@ def phase_omni_colour(o, dev):
             replaces=f"piccolo_tpu/kernels/histogram_mxu.py:{line}",
             max_abs_err=0.0, ms=cuda_ms(fn), plain_ms=cuda_ms(plain),
             bound_ms=bound_ms, bound_by=bound_by, library_ms=cuda_ms(lib)))
+    rows[0].update(_bh_extras(ids, 256))
+    stats = _run_stats(ids, msk, 256)
     for r in rows:
         log(f"tracked-frame {r['name']}: bit-exact; {r['ms']:.4f} ms (plain "
             f"{r['plain_ms']:.4f}, bincount {r['library_ms']:.4f}, bound "
-            f"{r['bound_ms']:.4f} by {r['bound_by']})")
+            f"{r['bound_ms']:.4f} by {r['bound_by']}"
+            + (f", empty launch {r['empty_launch_ms']:.4f}, threads "
+               f"{r['threads']}; counted {stats['counted_share']:.3f} of "
+               f"entries, {stats['counted_per_run']:.2f} a run"
+               if "threads" in r else "") + ")")
     del flat, y64
 
     matched = color.color_match_device(img, *cdf)
@@ -3153,6 +3253,8 @@ def _mesh_kernel_rows(mesh, plans_m, img_init, stage2_calls, by_card,
         plain_ms = cuda_ms(lambda: block_histogram_plain(ids, mask, nbins))
         library_ms = cuda_ms(lambda: torch.bincount(
             flat, weights=mask.reshape(-1), minlength=B * nbins))
+    extras = _bh_extras(ids, nbins)
+    stats = _run_stats(ids, mask, nbins)
     got = by_card.get("block_histogram", {})
     rows.append(dict(
         name="block_histogram.mesh", route="cuda",
@@ -3162,12 +3264,15 @@ def _mesh_kernel_rows(mesh, plans_m, img_init, stage2_calls, by_card,
         launches_per_query=sum(got.values()) / n_queries,
         launches_by_card=got, max_abs_err=max(err.values()),
         max_abs_err_by_card=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=library_ms))
+        bound_by=bound_by, library_ms=library_ms, **extras))
     log(f"mesh block histogram vs plain on {len(stage2_calls)} recorded "
         f"stage-2 calls (card, shape): {sorted(k[:2] for k in stage2_calls)}: "
         f"bit-exact; on {ids.device} at {shape}: {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, bincount {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms")
+        f"{bound_ms:.4f} ms, empty launch {extras['empty_launch_ms']:.4f} "
+        f"ms, threads {extras['threads']}; counted "
+        f"{stats['counted_share']:.3f} of entries, "
+        f"{stats['counted_per_run']:.2f} a run")
     return rows
 
 
@@ -3612,7 +3717,8 @@ def main():
     room = timed("room", phase_room, dev)
     rows = timed("kernels", phase_kernels, room, dev)
     timed("small reference", phase_small_reference, dev)
-    _, median_s = timed("main path", phase_main_path, room, dev)
+    _, median_s, lib_bh = timed("main path", phase_main_path, room, dev)
+    rows.append(lib_bh)
     timed("profile", phase_profile, room, dev, median_s)
     timed("graph vs eager", phase_graph_vs_eager, room, dev)
     timed("speed modes", phase_speed_modes, room, dev)
@@ -3706,7 +3812,10 @@ def main():
     keys = ("name", "route", "source", "replaces", "path", "launches",
             "launches_per_query", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    by_card = ("launches_by_card", "max_abs_err_by_card")
+    # optional: by card on the mesh's rows, the CTA threads and an empty
+    # launch's ms on the block histogram's
+    by_card = ("launches_by_card", "max_abs_err_by_card", "threads",
+               "empty_launch_ms")
     print(json.dumps({"kernels": [
         {k: row[k] for k in keys + by_card if k in keys or k in row}
         for row in rows]}))

@@ -1,10 +1,12 @@
 """Batched masked 512-bin histograms: the stage-2 block histograms.
 
 Port of piccolo_tpu/kernels/histogram_mxu.py::block_histogram_pallas.  The
-CUDA kernel is ``csrc/block_histogram.cu`` (one CUDA block per row, shared
-memory integer counters); :func:`block_histogram_plain` is the same function
-in plain PyTorch.  The wrapper takes the plain version only for tensors on
-the CPU; a CUDA tensor launches the kernel or raises.
+CUDA kernel is ``csrc/block_histogram.cu``: one CTA a row, 16 B loads and
+one shared-memory add an entry, in CTAs whose size comes from
+:func:`cta_threads`.  :func:`block_histogram_plain` is the same function in
+plain PyTorch.  The wrapper takes the plain version only for tensors on the
+CPU; a CUDA tensor launches the kernel or raises, a launch the card refuses
+too.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 
 from ._build import count_launch, load_library, on_device
 
-__all__ = ["block_histogram", "block_histogram_plain"]
+__all__ = ["block_histogram", "block_histogram_plain", "cta_threads"]
 
 _MAX_BINS = 12 * 1024  # int32 counters within the 48 KB default smem
 
@@ -34,13 +36,32 @@ def block_histogram_plain(ids: torch.Tensor, mask: torch.Tensor,
     return out.reshape(B, num_bins)
 
 
+def cta_threads(B: int, sms: int) -> int:
+    """Threads of each of the kernel's B CTAs, one a row, on a card of
+    ``sms`` SMs: 512 while the rows fit one CTA an SM (a shorter chain of
+    loads a thread), else 256."""
+    return 512 if B <= sms else 256
+
+
 @functools.cache
-def _launcher():
-    fn = load_library("block_histogram").block_histogram_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _library():
+    lib = load_library("block_histogram")
+    for fn, n_ptr in ((lib.block_histogram_launch, 3),
+                      (lib.block_histogram_empty_launch, 0)):
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"block_histogram {what} failed: CUDA error {err}")
 
 
 def block_histogram(ids: torch.Tensor, mask: torch.Tensor,
@@ -66,14 +87,26 @@ def block_histogram(ids: torch.Tensor, mask: torch.Tensor,
     out = torch.empty((B, num_bins), dtype=torch.float32, device=ids.device)
     if B == 0:
         return out
-    launch = _launcher()
+    threads = cta_threads(B, _sms(ids.device.index))
+    lib = _library()
     with on_device(ids.device) as stream:
-        err = launch(ids.data_ptr(), mask.data_ptr(), out.data_ptr(), B, N,
-                     num_bins, stream)
-    if err != 0:
-        raise RuntimeError(f"block_histogram launch failed: CUDA error {err}")
+        err = lib.block_histogram_launch(ids.data_ptr(), mask.data_ptr(),
+                                         out.data_ptr(), B, N, num_bins,
+                                         threads, stream)
+    _check(err, "launch")
     count_launch(block_histogram, ids.device)
     return out
+
+
+def _empty_launch(B: int, N: int, num_bins: int, device: torch.device) -> None:
+    """Launch an empty kernel with the geometry :func:`block_histogram`
+    gives (B, N) on ``device``: the floor of one launch's device time.
+    Counts no launch."""
+    threads = cta_threads(B, _sms(device.index))
+    with on_device(device) as stream:
+        err = _library().block_histogram_empty_launch(B, N, num_bins,
+                                                      threads, stream)
+    _check(err, "empty launch")
 
 
 block_histogram.launches, block_histogram.by_card = 0, {}

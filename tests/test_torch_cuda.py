@@ -50,17 +50,81 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("B,N", [(320, 8192), (7, 3001)])
-def test_block_histogram_kernel_bit_exact(dev, B, N):
-    g = torch.Generator(device="cpu").manual_seed(B)
-    ids = torch.randint(-3, 530, (B, N), generator=g, dtype=torch.int32)
-    mask = (torch.rand((B, N), generator=g) < 0.7).to(torch.float32)
-    want = block_histogram_plain(ids.to(dev), mask.to(dev))
+def _histogram_inputs(B, N, num_bins, kind, seed):
+    """(B, N) ids and mask: runs of one bin and of one mask value (coherent,
+    as stage 2's rendered blocks) or uniform ids in [-3, num_bins + 18);
+    row 0 all masked, row 1 all unmasked, some mask values 0.25."""
+    rng = np.random.default_rng(seed)
+    n = B * N
+    if kind == "coherent":
+        runs = n // 20 + 2
+        ids = np.repeat(rng.integers(-3, num_bins + 18, runs),
+                        rng.integers(1, 40, runs))
+        mask = np.repeat(rng.choice([0.0, 0.25, 1.0], runs, p=[0.2, 0.1, 0.7]),
+                         rng.integers(1, 40, runs))
+        ids, mask = np.resize(ids, n), np.resize(mask, n)
+    else:
+        ids = rng.integers(-3, num_bins + 18, n)
+        mask = rng.choice([0.0, 0.25, 1.0], n, p=[0.3, 0.1, 0.6])
+    ids = ids.reshape(B, N).astype(np.int32)
+    mask = mask.reshape(B, N).astype(np.float32)
+    mask[0] = 0.0
+    if B > 1:
+        mask[1] = 1.0
+    return ids, mask
+
+
+def _on_card(a, dev, misaligned):
+    """``a`` on the card, contiguous; one element into its storage when
+    ``misaligned`` (so a row's 16 B vectors start off its first entry)."""
+    t = torch.from_numpy(a).to(dev)
+    if not misaligned:
+        return t
+    buf = torch.empty(a.size + 1, dtype=t.dtype, device=dev)
+    view = buf[1:].view(a.shape)
+    view.copy_(t)
+    return view
+
+
+# (B, N, num_bins): library/Stanford stage 2, a mesh shard's, a tracked
+# frame's colour match, OmniScenes stage 2, ragged N, N under one 16 B
+# vector a lane, and wide histograms
+BH_SHAPES = [(320, 8192, 512), (128, 8192, 512), (3072, 2048, 256),
+             (800, 131072, 512), (7, 3001, 512), (5, 7, 512),
+             (64, 8192, 1000), (33, 4099, 256)]
+
+
+@pytest.mark.parametrize("layout", ["aligned", "misaligned", "mask_misaligned"])
+@pytest.mark.parametrize("kind", ["coherent", "uniform"])
+@pytest.mark.parametrize("B,N,num_bins", BH_SHAPES)
+def test_block_histogram_kernel_bit_exact(dev, B, N, num_bins, kind, layout):
+    """Bit-exact against the plain version, one launch; misaligned: ids and
+    mask both one element into their storage (vectors after a scalar
+    head), mask_misaligned: only mask (every entry one at a time)."""
+    ids_np, mask_np = _histogram_inputs(B, N, num_bins, kind, B * N + num_bins)
+    ids = _on_card(ids_np, dev, layout == "misaligned")
+    mask = _on_card(mask_np, dev, layout != "aligned")
+    assert ids.is_contiguous() and mask.is_contiguous()
+    want = block_histogram_plain(ids, mask, num_bins)
     n0 = block_histogram.launches
-    got = block_histogram(ids.to(dev), mask.to(dev))
+    got = block_histogram(ids, mask, num_bins)
     torch.cuda.synchronize()
     assert block_histogram.launches == n0 + 1
     assert torch.equal(got, want)
+    assert float(got[0].sum()) == 0.0
+
+
+def test_block_histogram_refused_launch_raises(dev, monkeypatch):
+    """A launch the card refuses (CTAs of 2048 threads, above any card's
+    1024) raises and counts no launch: no quiet fallback."""
+    from piccolo_tpu_torch.kernels import block_histogram as bh
+
+    monkeypatch.setattr(bh, "cta_threads", lambda *a: 2048)
+    ids = torch.zeros((4, 8192), dtype=torch.int32, device=dev)
+    n0 = bh.block_histogram.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        bh.block_histogram(ids, torch.ones((4, 8192), device=dev))
+    assert bh.block_histogram.launches == n0
 
 
 def test_slab_kernel_matches_plain(dev):
