@@ -40,9 +40,11 @@ Phases (any failure exits non-zero; each prints its seconds):
      turns; and the masked histogram at N = 8,388,608, 524,288 and 3,001
      (bit-exact on 0/1 masks, the same bits twice on a random mask), timed
      beside an empty kernel;
- 10. eight in-process runs of ``piccolo_tpu_torch.main`` on that tree with
+ 10. nine in-process runs of ``piccolo_tpu_torch.main`` on that tree with
      configs/stanford.ini:
-       A  the shipped config (the ladder's own route),
+       A  the shipped config (the ladder's own route: one slab plan on
+          every query, named by its route lines, launched once a group),
+       A' A on the gather engine (slab_init = False),
        B  forced compact plan, built and saved to a plan cache,
        B' B again, loading the plan from the cache,
        C  forced q8 plan,
@@ -56,7 +58,7 @@ Phases (any failure exits non-zero; each prints its seconds):
           first query runs the gather engine;
      each must reach median t_err < 0.05 m and accuracy >= 0.75 and
      launch its kernel on every query that has a plan (run D: the f32
-     kernel once a group, 9 times a query); B and C must give
+     kernel once a group, 9 times a query); A' and B and C must give
      A's winners, B' B's, E D's, and F and G E's, within 1e-3 m;
  11. the library path with the descent's speed modes, prune (30, 2) and
      multires (70, 2), in turns with the default descent: t_err, s/query
@@ -76,8 +78,9 @@ Phases (any failure exits non-zero; each prints its seconds):
      table (auto) against float32: winner poses within 0.01 m, both
      localized;
  15. two CLI runs of the shipped configs/omniscenes.ini: fused (through the
-     ladder) and fused = False; accuracy >= 0.75 under 0.1 m / 5 deg each,
-     the same winners within 1e-3 m; launches counted over the fused run;
+     ladder, phase 13's plan whole on every query) and fused = False;
+     accuracy >= 0.75 under 0.1 m / 5 deg each, the same winners within
+     1e-3 m; launches counted over the fused run;
  16. one OmniScenes query under torch.profiler;
  17. serving (between phases 10 and 12): configs/stanford.ini in
      LocalizeService on the CLI's room, warmed at load, behind serve_forever
@@ -153,8 +156,8 @@ Phases (any failure exits non-zero; each prints its seconds):
      seconds under its lock;
  26. with two or more cards (last): scripts/measure_stretch.py's room
      (1.02 M points, 4096x2048) on one card and over the meshes (1, n),
-     (2, n / 2) and (n, 1): each card's plan bytes before the build,
-     s/query, t_err, peak memory by card.
+     (2, n / 2) and (n, 1): each card's plan bytes before the build (the
+     admitted plan must be built), s/query, t_err, peak memory by card.
  27. profile_dir (after phase 10): run D again with profile_dir set: one
      torch.profiler trace a query, run D's rows but for time, no graph
      captured or recaptured, and the slab and block-histogram kernels in
@@ -177,20 +180,31 @@ Phases (any failure exits non-zero; each prints its seconds):
      tracking run again with profile_dir set: one trace a frame (the
      seed's fused query, the tracked frames with their device colour
      prep), that run's rows but for time, no graph captured or recaptured,
-     and the kernels in the traces as often as their wrappers counted.
+     and the kernels in the traces as often as their wrappers counted;
+ 32-35. the routing decisions, at the library room (after phase 6), the
+     CLI room under the shipped stanford.ini (its ladder's plan, after
+     phase 9), the OmniScenes room (after phase 14) and, on one card, the
+     stretch room of phase 26 (after phase 24; its admitted plan must be
+     built, whole): for each of the five values that choose the card's
+     route (init.refine.gather_chunk, slab_worthwhile, the plan budget's
+     fraction, resolve_plan_geometry, the descent table under auto), its
+     pick and the route it refused, both timed in turns (host clock,
+     synchronised); each fails when its pick takes ROUTING_SLOWER (2x)
+     the other's time or more.  A `routing:` line holds every row.
 On one card phases 25 and 26 print that they need two cards.
 Every descent above runs its captured graph (solver.py), and every
-profiled query reports its kernel and graph launches.  Then one line of
-the profiles' summaries, one line of every graph captured (its shapes,
-capture s, pool and static bytes, replays), one JSON line of kernel
-measurements (launches from the run that drives each kernel) and, last,
-the device line.
+profiled query reports its kernel and graph launches.  Then the routing
+rows, one line of the profiles' summaries, one line of every graph
+captured (its shapes, capture s, pool and static bytes, replays), one JSON
+line of kernel measurements (launches from the run that drives each
+kernel) and, last, the device line.
 """
 
 from __future__ import annotations
 
 import contextlib
 import csv
+import dataclasses
 import glob
 import io
 import json
@@ -606,7 +620,7 @@ def phase_cli_room(dev, tmp):
     pano = sorted(glob.glob(os.path.join(tree, "stanford", "pano", "area_1",
                                          "*.png")))[0]
     room = dict(rgb=rgb_d, rgb_np=rgb, mask=mask_d, device=dev)
-    img_init, _, rgb_used, _ = hl.prepare_stanford_images(
+    img_init, img_main, rgb_used, _ = hl.prepare_stanford_images(
         cfg, imread_rgb(pano), room)
     n_pairs = grids.n_trans * int(grids.rot.shape[0])
     n_points = int(mask_d.shape[0])
@@ -619,7 +633,8 @@ def phase_cli_room(dev, tmp):
         f"{img_init.shape[1]}x{img_init.shape[0]}; plan estimates {est} B")
     return dict(tree=tree, xyz_d=xyz_d, rgb_d=rgb_d, mask_d=mask_d,
                 grids=grids, img_init=img_init, rgb_used=rgb_used,
-                n_pairs=n_pairs, groups=-(-n_pairs // 128), est=est)
+                n_pairs=n_pairs, groups=-(-n_pairs // 128), est=est, cfg=cfg,
+                img_main=img_main, bounds=hl._order_bounds(xyz, 0.05))
 
 
 def _f32_rebaked(fields, rgb):
@@ -1218,6 +1233,7 @@ def phase_cli(cli, dev):
     forced = "slab_init=True,slab_background_build=False"
     runs = [
         ("A", None, ""),
+        ("A'", "", "slab_init=False"),
         ("B", "slab_group_sums_compact",
          f"{forced},slab_compact=True,slab_plan_cache=True,"
          f"slab_plan_cache_dir={plans}"),
@@ -1237,7 +1253,8 @@ def phase_cli(cli, dev):
     ]
     # runs whose winners must equal another run's: the plans and kernels
     # move no winner against the gather engine and the live splat
-    same_as = {"B": "A", "B'": "B", "C": "A", "E": "D", "F": "E", "G": "E"}
+    same_as = {"A'": "A", "B": "A", "B'": "B", "C": "A", "E": "D", "F": "E",
+               "G": "E"}
     out, winners = {}, {}
     slab.build_grid_plan = counting_build
     try:
@@ -1297,6 +1314,21 @@ def phase_cli(cli, dev):
                     raise AssertionError(f"run G never used its partial "
                                          f"plan: {routes}")
                 want_groups = groups_g * on_plan
+            if run == "A":
+                # the shipped config's own route: the plan the ladder admits
+                # on every query (a build that fails falls back to the
+                # gather engine, which fails here), one launch a group
+                layout = routes[0].split()[2] if routes else None
+                if layout not in ("f32", "compact", "q8") or not all(
+                        r_.startswith(f"stage 1 {layout} slab plan,")
+                        for r_ in routes):
+                    raise AssertionError(f"run A did not take one slab plan "
+                                         f"on every query: {routes}")
+                slab_kernel = f"slab_group_sums_{layout}"
+            if run == "A'" and not all(r_.startswith("stage 1 gather engine")
+                                       for r_ in routes):
+                raise AssertionError(f"run A' left the gather engine: "
+                                     f"{routes}")
             if run == "F" and not all(r_.startswith("stage 1 q8 slab plan,")
                                       for r_ in routes):
                 raise AssertionError(f"run F did not admit a q8 plan for "
@@ -1326,8 +1358,10 @@ def phase_cli(cli, dev):
             out[run] = launches
     finally:
         slab.build_grid_plan = real_build
+    f32_run = "A" if out["A"]["slab_group_sums_f32"] else "D"
     return {
-        "slab_group_sums_f32": (out["D"]["slab_group_sums_f32"], n_q, "D"),
+        "slab_group_sums_f32":
+            (out[f32_run]["slab_group_sums_f32"], n_q, f32_run),
         "slab_group_sums_compact":
             (out["B"]["slab_group_sums_compact"], n_q, "B"),
         "slab_group_sums_q8": (out["C"]["slab_group_sums_q8"], n_q, "C"),
@@ -1971,7 +2005,7 @@ def phase_omni_kernels(o, dev):
     dt = float(np.abs(res["auto"][1] - res["float32"][1]).max())
     errs = {k: float(np.linalg.norm(v[1] - gt_t.ravel())) for k, v in res.items()}
     log(f"omniscenes descent table: auto resolves to "
-        f"{resolve_descent_table('auto', *o['img_main'].shape[:2])}; "
+        f"{resolve_descent_table('auto', *o['img_main'].shape[:2], dev)}; "
         f"winner {res['auto'][0]} (bf16) / {res['float32'][0]} (f32), "
         f"winners {dt:.4g} m apart, t_err {errs}")
     # two starts can descend into the same basin, so the winner's index may
@@ -1987,11 +2021,14 @@ def _omni_csv(log_dir):
         return list(csv.reader(f))[1:]
 
 
-def phase_omni_cli(omni, dev):
+def phase_omni_cli(omni, dev, layout):
     """The shipped configs/omniscenes.ini through the CLI on the OmniScenes
     tree, fused (through the ladder) and with fused = False; each must reach
     accuracy >= 0.75 under 0.1 m / 5 deg, and the two runs' winners must
-    agree within 1e-3 m.  Returns the fused run's launches per kernel."""
+    agree within 1e-3 m; the fused run must score stage 1 on the ``layout``
+    plan phase 13 admitted, whole, on every query (a plan build that fails
+    falls back to the gather engine).  Returns the fused run's launches per
+    kernel."""
     from piccolo_tpu_torch.kernels import slab_sampling as slab
     from piccolo_tpu_torch.kernels.block_histogram import block_histogram
     from piccolo_tpu_torch.main import main as cli_main
@@ -2037,6 +2074,11 @@ def phase_omni_cli(omni, dev):
             raise AssertionError(f"omniscenes {run}: block_histogram launched "
                                  f"{launches['block_histogram']} times for "
                                  f"{n_q} queries")
+        if run == "fused" and not all(
+                r_.startswith(f"stage 1 {layout} slab plan,")
+                for r_ in routes):
+            raise AssertionError(f"omniscenes fused: routes {routes}, not the "
+                                 f"{layout} plan on every query")
         out[run] = dict(launches=launches, routes=routes, s=q_s, acc=acc,
                         winners=winners[run])
     dt = float(np.abs(winners["fused"] - winners["staged"]).max())
@@ -3660,6 +3702,12 @@ def phase_mesh_stretch(dev):
             "q8" if plan.quant else "compact" if plan.compact else "f32")
         log(f"stretch, {label}: {layout} plan, bytes by card "
             f"{card_bytes}, built in {build_s:.2f} s")
+        # a plan build that runs out of memory falls back to the gather
+        # engine and only prints: the ladder's admission must hold
+        if plan is None and hl._slab_admission(cfg, cache, grids,
+                                               imgs[0][1]) is not None:
+            raise AssertionError(f"stretch, {label}: the admitted plan fell "
+                                 "back to the gather engine")
 
         def query(k):
             _, ii, im = imgs[k]
@@ -3702,6 +3750,260 @@ def phase_mesh_stretch(dev):
     return out
 
 
+# the routing decisions (phases 32-35): the value's pick must take less
+# than this multiple of the time of the route it refused, both measured here
+ROUTING_SLOWER = 2.0
+ROUTING = []  # one row per decision and shape
+
+
+def _walls(fns, reps=2):
+    """Median host seconds of each synchronised call, after one warm-up
+    each, in turns (ABBA, ``reps`` times)."""
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    keys = list(fns)
+    out = {k: [] for k in keys}
+    for order in (keys, keys[::-1]) * reps:
+        for k in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[k]()
+            torch.cuda.synchronize()
+            out[k].append(time.perf_counter() - t0)
+    return {k: float(np.median(v)) for k, v in out.items()}
+
+
+def _first_groups(plan, n):
+    """The plan cut to its first ``n`` groups (and their pairs)."""
+    return dataclasses.replace(
+        plan, fields=plan.fields[:n], windows=plan.windows[:n],
+        tps=plan.tps[:n], n_pairs=min(plan.n_pairs, n * 128))
+
+
+def phase_routing(label, r, dev):
+    """The five values that choose the card's route, at one shape: each
+    decision's pick beside the route it refused, both timed here in turns
+    (host clock around synchronised calls); fails when the pick takes
+    ROUTING_SLOWER times the other's time or more.
+
+    ``r`` holds the room's padded cloud (xyz_d, rgb_d, mask_d), clamp box
+    (lo, hi), real grid rows (trans, rot) and the grid padded as the
+    pipeline pads it (grid: a multiple of 64 rows), the query's images
+    (img_init, img_main) and colours (rgb), whether the query re-bakes the
+    plan (refresh), and the plan the route built (plan).
+      grid_chunk: the gather engine over the padded grid's pairs, as the
+        pipeline scores them, at gather_chunk's chunk and at the other of
+        16 and 32 (and whether the scores are bit-equal);
+      slab_worthwhile: stage 1 on the plan (its layout, re-bake fused when
+        the query re-bakes) against the gather engine;
+      plan fraction: the layout the budget admitted against the next one
+        down the ladder (f32 -> compact -> q8; q8 -> the gather engine), on
+        the plan's first two groups;
+      plan geometry: the plan's (window, block) against the other, on its
+        first two groups;
+      descent table: a graphed 6 x 100 descent from the first six pairs on
+        the f32 and on the bf16 table."""
+    from piccolo_tpu_torch.init.refine import _score_pairs, gather_chunk
+    from piccolo_tpu_torch.kernels import slab_sampling as slab
+    from piccolo_tpu_torch.ops.sampling import resolve_descent_table
+    from piccolo_tpu_torch.solver import descend_starts
+
+    img, plan = r["img_init"], r["plan"]
+    H, W = img.shape[0], img.shape[1]
+    n_points = int(r["mask_d"].shape[0])
+    pair_t, pair_r = slab.make_pairs(r["trans"], r["rot"])
+    n_pairs = int(pair_t.shape[0])
+    grid_t, grid_r = slab.make_pairs(r["grid"], r["rot"])
+    palette = r["rgb"] if r["refresh"] else None
+    layout = "q8" if plan.quant else ("compact" if plan.compact else "f32")
+
+    def decide(name, pick, fns, **extra):
+        t = _walls(fns)
+        other = next(k for k in fns if k != pick)
+        row = dict(shape=label, decision=name, pick=pick,
+                   pick_ms=1e3 * t[pick], refused=other,
+                   refused_ms=1e3 * t[other], **extra)
+        ROUTING.append(row)
+        log(f"routing, {label}: {name}: {pick} {row['pick_ms']:.3f} ms, "
+            f"refused {other} {row['refused_ms']:.3f} ms"
+            + (f"; {extra}" if extra else ""))
+        if t[pick] >= ROUTING_SLOWER * t[other]:
+            raise AssertionError(f"routing, {label}: {name} picks {pick}, "
+                                 f"{ROUTING_SLOWER}x or more slower than "
+                                 f"{other}: {row}")
+
+    def gather(c):
+        return lambda: _score_pairs(img, r["xyz_d"], r["rgb_d"], grid_t,
+                                    grid_r, r["mask_d"], c)
+
+    def stage1(p):
+        return lambda: slab.slab_pair_scores(img, p, palette)
+
+    chunk = gather_chunk(n_points, dev)
+    c_other = 32 if chunk == 16 else 16
+    decide("grid_chunk", f"chunk {chunk}",
+           {f"chunk {chunk}": gather(chunk), f"chunk {c_other}":
+            gather(c_other)},
+           bit_equal=bool(torch.equal(gather(chunk)(), gather(c_other)())))
+    worth = slab.slab_worthwhile(n_pairs, n_points, H, W, r["refresh"],
+                                 compact=plan.compact, device=dev)
+    decide("slab_worthwhile", "slab plan" if worth else "gather engine",
+           {"slab plan": stage1(plan), "gather engine": gather(chunk)},
+           layout=layout, pairs=n_pairs, plan_pairs=plan.n_pairs)
+
+    n = min(2, len(plan.fields))
+    head = _first_groups(plan, n)
+
+    def build(**kw):
+        return _first_groups(slab.build_grid_plan(
+            r["xyz_d"], r["rgb_d"], r["mask_d"], r["trans"], r["rot"], H, W,
+            tp_is_pid=r["refresh"] and kw.get("compact", False),
+            device=dev, groups=(0, n), **kw), n)
+
+    cap = slab.default_plan_bytes_cap(dev)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    if layout == "q8":
+        fns = {"q8 plan": stage1(head), "gather engine": gather(chunk)}
+    else:
+        down = "compact" if layout == "f32" else "q8"
+        fns = {f"{layout} plan": stage1(head),
+               f"{down} plan": stage1(build(compact=True,
+                                            quant=down == "q8"))}
+    decide("plan fraction", next(iter(fns)), fns, cap=cap,
+           plan_bytes=plan.nbytes, card_peak_so_far=peak, groups=n)
+    del fns
+
+    geo = (plan.window, plan.block)
+    if geo != slab.resolve_plan_geometry(n_points, H, W, device=dev):
+        raise AssertionError(f"routing, {label}: the plan's geometry {geo} "
+                             "is not the resolver's")
+    other = (256, 512) if geo == (128, 1024) else (128, 1024)
+    alt = build(compact=plan.compact, quant=plan.quant, window=other[0],
+                block=other[1])
+    decide("plan geometry", f"{geo[0]}x{geo[1]}",
+           {f"{geo[0]}x{geo[1]}": stage1(head),
+            f"{other[0]}x{other[1]}": stage1(alt)}, layout=layout, groups=n,
+           density=n_points / ((H + 1) * (W + 1)))
+    del alt
+    torch.cuda.empty_cache()
+
+    img_main = r["img_main"]
+    Hm, Wm = img_main.shape[0], img_main.shape[1]
+    lo, hi = (torch.as_tensor(np.asarray(b, np.float32), device=dev)
+              for b in r["bounds"])
+
+    def descent(dtype):
+        return lambda: descend_starts(
+            img_main, r["xyz_d"], r["rgb_d"], pair_t[:6], pair_r[:6], lo, hi,
+            r["mask_d"], 100, 0.1, 5, 0.8, table_dtype=dtype)
+
+    decide("descent table", resolve_descent_table("auto", Hm, Wm, dev),
+           {"float32": descent("float32"), "bfloat16": descent("bfloat16")},
+           table_mb_f32=(Hm + 1) * (Wm + 1) * 48 / 1e6)
+
+
+def _routing_inputs(dev, xyz_d, rgb_d, mask_d, bounds, grid, n_trans, rot,
+                    img_init, img_main, rgb, refresh, plan):
+    f32 = torch.float32
+    grid = torch.as_tensor(grid, device=dev, dtype=f32)
+    return dict(xyz_d=xyz_d, rgb_d=rgb_d, mask_d=mask_d, bounds=bounds,
+                grid=grid, trans=grid[:n_trans],
+                rot=torch.as_tensor(rot, device=dev, dtype=f32),
+                img_init=torch.as_tensor(img_init, device=dev, dtype=f32),
+                img_main=torch.as_tensor(img_main, device=dev, dtype=f32),
+                rgb=torch.as_tensor(rgb, device=dev, dtype=f32),
+                refresh=refresh, plan=plan)
+
+
+def phase_routing_library(room, dev):
+    """Phase 32: the routing decisions at the library room (phase 3's plan,
+    the f32 layout, no re-bake)."""
+    _, _, img_init, img_main = _query_images(100, room["xyz"], room["rgb"],
+                                             dev)
+    phase_routing("library", _routing_inputs(
+        dev, room["xyz_d"], room["rgb_d"], room["mask_d"],
+        (room["lo"], room["hi"]), room["trans"], len(room["trans_real"]),
+        room["rot"], img_init, img_main, room["rgb_d"], False, room["plan"]),
+        dev)
+
+
+def phase_routing_cli(cli, dev):
+    """Phase 33: the routing decisions at the CLI's room under the shipped
+    configs/stanford.ini: the plan its ladder admits (sharpen_color: the
+    re-bake on every query), built as run A builds it."""
+    from piccolo_tpu_torch.harness import localize as hl
+
+    grids = cli["grids"]
+    cache = dict(xyz=cli["xyz_d"], rgb=cli["rgb_d"], mask=cli["mask_d"],
+                 device=dev)
+    img_init = torch.as_tensor(cli["img_init"], device=dev)
+    plan = hl._maybe_slab_plan(cli["cfg"], cache, grids, img_init, sync=True)
+    if plan is None:
+        raise AssertionError("the shipped stanford.ini admitted no plan")
+    phase_routing("stanford.ini", _routing_inputs(
+        dev, cli["xyz_d"], cli["rgb_d"], cli["mask_d"], cli["bounds"],
+        grids.trans, grids.n_trans, grids.rot, img_init, cli["img_main"],
+        cli["rgb_used"], True, plan), dev)
+
+
+def phase_routing_omni(o, dev):
+    """Phase 34: the routing decisions at the OmniScenes room (phase 13's
+    plan)."""
+    room, grids = o["room"], o["room"]["grids"]
+    phase_routing("omniscenes.ini", _routing_inputs(
+        dev, room["xyz"], room["rgb"], room["mask"], (room["lo"], room["hi"]),
+        grids.trans, grids.n_trans, grids.rot, o["img_init"], o["img_main"],
+        o["rgb_used"], o["rgb_used"] is not room["rgb"], o["plan"]), dev)
+
+
+def phase_routing_stretch(dev):
+    """Phase 35: scripts/measure_stretch.py's room (1.02 M points, 4096x2048
+    main, 1024x512 init, 50 trans x 8 yaws) on one card: its plan through
+    the harness's admission, which must be built (a build that runs out of
+    memory falls back to the gather engine), then the routing decisions."""
+    from piccolo_tpu_torch.config import make_config
+    from piccolo_tpu_torch.harness import localize as hl
+    from piccolo_tpu_torch.init.candidates import default_init_dict
+    from piccolo_tpu_torch.testing import make_room, random_pose_inside
+    from piccolo_tpu_torch.testing import render_at
+
+    rng = np.random.default_rng(7)
+    xyz, rgb = make_room(rng, n_per_wall=170000, size=SIZE, texture="checker")
+    xyz_d, rgb_d, mask_d = hl._pad_cloud(xyz, rgb, dev)
+    init = default_init_dict(xy_only=True, yaw_only=True, num_yaw=8,
+                             num_trans=50, z_prior=None, num_split_h=4,
+                             num_split_w=4)
+    grids = hl._FusedGrids(xyz, init, dev)
+    gt_t, gt_ypr = random_pose_inside(np.random.default_rng(700), SIZE)
+    img_main = render_at(xyz, rgb, gt_t, gt_ypr, (2048, 4096), device=dev)
+    img_init = img_main[::4, ::4].contiguous()
+    cfg = make_config(dataset="Stanford2D-3D-S", slab_init="auto",
+                      slab_plan_cache=False, slab_background_build=False)
+    cache = dict(xyz=xyz_d, rgb=rgb_d, mask=mask_d, device=dev)
+    adm = hl._slab_admission(cfg, cache, grids, img_init)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    plan = hl._maybe_slab_plan(cfg, cache, grids, img_init, sync=True)
+    torch.cuda.synchronize()
+    log(f"stretch room, one card: admission {adm}; "
+        + ("no plan" if plan is None else
+           f"{plan.nbytes} B plan (compact {plan.compact}, quant "
+           f"{plan.quant}, window {plan.window}) built in "
+           f"{time.time() - t0:.2f} s"))
+    if adm is None or plan is None:
+        raise AssertionError(f"stretch room: admission {adm}, plan {plan}")
+    if plan.n_pairs < grids.n_trans * int(grids.rot.shape[0]):
+        raise AssertionError("stretch room: a partial plan on one card")
+    phase_routing("stretch", _routing_inputs(
+        dev, xyz_d, rgb_d, mask_d, hl._order_bounds(xyz, 0.05), grids.trans,
+        grids.n_trans, grids.rot, img_init, img_main, rgb_d, False, plan),
+        dev)
+    del plan, cache
+    torch.cuda.empty_cache()
+
+
 def timed(name, fn, *args):
     t0 = time.time()
     out = fn(*args)
@@ -3719,16 +4021,21 @@ def main():
     timed("small reference", phase_small_reference, dev)
     _, median_s, lib_bh = timed("main path", phase_main_path, room, dev)
     rows.append(lib_bh)
+    timed("routing library", phase_routing_library, room, dev)
     timed("profile", phase_profile, room, dev, median_s)
     timed("graph vs eager", phase_graph_vs_eager, room, dev)
     timed("speed modes", phase_speed_modes, room, dev)
     mesh = timed("mesh", phase_mesh, room, dev)
     del room
     torch.cuda.empty_cache()
+    # first of the CLI-scale phases: the stretch plan needs the card's
+    # memory as a fresh process has it
+    timed("routing stretch", phase_routing_stretch, dev)
     tmp = tempfile.mkdtemp(prefix="piccolo_cli_")
     try:
         cli = timed("cli room", phase_cli_room, dev, tmp)
         rows += timed("layout kernels", phase_layout_kernels, cli, dev)
+        timed("routing stanford.ini", phase_routing_cli, cli, dev)
         torch.cuda.empty_cache()
         launched = timed("cli", phase_cli, cli, dev)
         timed("cli profile_dir", phase_cli_profile, cli, dev)
@@ -3749,7 +4056,9 @@ def main():
         omni = timed("omniscenes tree", phase_omni_tree, tmp)
         o = timed("omniscenes room", phase_omni_room, dev, omni)
         omni_rows = timed("omniscenes kernels", phase_omni_kernels, o, dev)
-        runs = timed("omniscenes cli", phase_omni_cli, omni, dev)
+        timed("routing omniscenes.ini", phase_routing_omni, o, dev)
+        runs = timed("omniscenes cli", phase_omni_cli, omni, dev,
+                     o["layout"])
         timed("omniscenes profile", phase_omni_profile, o, dev,
               runs["fused"]["s"])
         track_rows = timed("omniscenes colour", phase_omni_colour, o, dev)
@@ -3801,6 +4110,7 @@ def main():
         row["launches_per_query"] = None if n_q is None else n / n_q
         row["path"] = ("no query path" if run is None else run
                        if run.startswith("omniscenes") else f"cli run {run}")
+    log("routing: " + json.dumps(ROUTING))
     log("profiles: " + json.dumps(PROFILES))
     from piccolo_tpu_torch import solver
 

@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "as_tensor"]
+__all__ = ["resolve_device", "as_tensor", "on_card"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -34,3 +34,10 @@ def as_tensor(x, device: torch.device, dtype=None) -> torch.Tensor:
         if not x.flags.writeable:  # e.g. np.asarray of a JAX array
             x = x.copy()
     return torch.as_tensor(x, dtype=dtype, device=device)
+
+
+def on_card(device) -> bool:
+    """Whether ``device`` (a torch.device, its name, or None) is a CUDA
+    card: the values that choose the card's routes take the H100's there
+    and the JAX package's elsewhere."""
+    return device is not None and torch.device(device).type == "cuda"

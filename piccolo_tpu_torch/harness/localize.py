@@ -14,9 +14,11 @@ Stage 1 runs through the JAX package's plan admission ladder
 (``_slab_admission``): slab off, or the f32 plan, demoted to the compact
 plan, the q8 plan, a partial q8 plan with a gather-engine tail, or the
 gather engine, by the plan-memory budget and the per-query cost model
-``slab_worthwhile``.  Plans are built once per room and init-image size,
-in line by default.  ``slab_background_build = True`` builds them on a
-thread while the room's first queries run the gather engine, and
+``slab_worthwhile``, each with the room's device's own values (on the
+card the H100's, on the CPU the JAX package's).  Plans are built once per
+room and init-image size, in line by default.  ``slab_background_build =
+True`` builds them on a thread while the room's first queries run the
+gather engine, and
 ``slab_plan_cache = True`` persists them to a disk cache that the JAX
 package shares.  Both are off by default, unlike in the JAX package: on
 the H100 a plan builds faster than it loads from the disk (PERF.md).  A
@@ -595,12 +597,12 @@ def _slab_admission_uncached(cfg, cache, grids, img_init):
                 n_t_build = groups_fit * GROUP // R
                 if n_t_build < max(1, GROUP // R) or n_t_build >= n_t:
                     return None
-        # a per-query re-bake (sharpen_color) is only worth it when the
-        # gather engine is slow enough; a partial plan is judged on the
-        # pairs it covers
+        # a plan (with sharpen_color's per-query re-bake) must beat the
+        # gather engine by the device's own rates; a partial plan is judged
+        # on the pairs it covers
         if not slab_worthwhile(
             n_t_build * R, n_points, img_init.shape[0], img_init.shape[1],
-            refresh=sharpen, compact=compact,
+            refresh=sharpen, compact=compact, device=cache["device"],
         ):
             return None
     return dict(mode=mode, n_t=n_t, n_t_build=n_t_build, compact=compact,

@@ -21,7 +21,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..device import as_tensor, resolve_device
+from ..device import as_tensor, on_card, resolve_device
 from ..kernels.block_histogram import block_histogram
 from ..kernels.slab_sampling import make_pairs
 from ..loss import Pose, sampling_loss_packed, transform_cloud
@@ -31,7 +31,7 @@ from ..ops.sampling import pack_bilinear_blocks
 from .candidates import generate_rot_points, generate_trans_points
 
 __all__ = [
-    "SUPPORTED_CRITERIA", "check_criterion", "score_pose_grid",
+    "SUPPORTED_CRITERIA", "check_criterion", "gather_chunk", "score_pose_grid",
     "trim_by_loss", "hist_scores", "hist_scores_core", "trim_by_hist",
     "make_input", "HistPlan", "build_hist_plan", "hist_plan_bytes",
     "hist_scores_from_planes",
@@ -65,6 +65,32 @@ def _pad_rows(a: torch.Tensor, multiple: int) -> Tuple[torch.Tensor, int]:
 
 def _pose_batch(trans: torch.Tensor, ypr: torch.Tensor) -> Pose:
     return Pose(t=trans, yaw=ypr[:, 0], pitch=ypr[:, 1], roll=ypr[:, 2])
+
+
+# the gather engine's chunk on the card: as many poses as keep a chunk
+# within 64 x 65,536 pair-points, from 16 to 64.  H100 80GB HBM3, 700 W
+# (scripts/measure_admission.py, PERF.md's routing-values table,
+# row 2): at 65,536 points 64 poses take 12-40% less wall time than 16
+# (74% less at 4,096 points) and 32 poses 4-7% less at 98,304 and 131,072,
+# with the same bits; at 1.05 M points no chunk above 16 saves more than
+# 2.1%, and 32 and more change the last bit of some scores.  PyTorch lays
+# a row's sum over threads and CTAs by the number of rows, which the rule
+# keeps in one regime; so does a whole chunk, and the pipeline's grids
+# (a multiple of 64 translations) give only whole chunks
+_CARD_CHUNK_PAIR_POINTS = 64 * 65536
+
+
+def gather_chunk(n_points: int, device) -> int:
+    """Poses the gather engine scores at once for a cloud of ``n_points``
+    on ``device``: 16, the JAX package's, off the card; on the card the
+    largest of 64, 32 and 16 within ``_CARD_CHUNK_PAIR_POINTS``.  Each
+    pair's loss is summed within its own chunk; on the card a chunk of
+    fewer than 16 poses sums in another order, so scores keep their bits
+    across chunks where every chunk is whole."""
+    chunk = 64 if on_card(device) else 16
+    while chunk > 16 and chunk * n_points > _CARD_CHUNK_PAIR_POINTS:
+        chunk //= 2
+    return chunk
 
 
 def _score_pairs(img, xyz, rgb, pair_t, pair_ypr, point_mask, chunk: int,

@@ -35,7 +35,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..device import as_tensor, resolve_device
+from ..device import as_tensor, on_card, resolve_device
 from ..loss import Pose, transform_cloud
 from ..ops.projection import safe_norm, spherical_project
 from ..ops.sampling import pack_bilinear_blocks, packed_rows_and_weights
@@ -85,27 +85,46 @@ _Q8_PAD_LIDX = 511
 _Q8_MAX_WINDOW = 256
 
 
+# resolve_plan_geometry's density split (points a table row) between
+# (128, 1024) and (256, 512) on the card.  H100 80GB HBM3, 700 W
+# (scripts/measure_admission.py, PERF.md's routing-values table,
+# row 4), group-sum device time: (128, 1024) wins every layout, re-bake or
+# not, at densities 0.46 and 2.0 (5-27% less time); (256, 512) wins 17 of
+# 18 cases at 0.031 and 0.0078 (its plan holds a half or a third of the
+# slots); at 0.125 (the Stanford CLI's 1024x512 init image) (128, 1024)
+# takes 7% less summed over the six layouts in two rooms, 9-10% less on the
+# shipped config's f32 re-bake, and loses 2-5% on f32 and compact without
+# it.  The JAX package splits at 0.25.
+_CARD_DENSITY_SPLIT = 1.0 / 16.0
+
+
 def resolve_plan_geometry(n_points: int, height: int, width: int,
-                          window=None, block=None):
-    """(window, block) for a plan: (128, 1024) for dense tables (>= 0.25
-    points per table row), else (256, 512); explicit values override.  The
-    rule is the JAX package's, carried over unchanged."""
+                          window=None, block=None, device=None):
+    """(window, block) for a plan: (128, 1024) for dense tables, else
+    (256, 512); explicit values override.  Dense is at least 0.25 points a
+    table row, the JAX package's rule, or on a CUDA ``device`` at least
+    ``_CARD_DENSITY_SPLIT``."""
     if window is None and block is None:
         density = n_points / float(_table_rows(height, width))
-        return (128, 1024) if density >= 0.25 else (256, 512)
+        split = _CARD_DENSITY_SPLIT if on_card(device) else 0.25
+        return (128, 1024) if density >= split else (256, 512)
     return (int(window or WINDOW), int(block or BLOCK))
 
 
 DEFAULT_PLAN_BYTES_CAP = 9 * 10**9
-# the JAX package's plan share of device memory, not yet re-decided for
-# the H100
+# the plan budget's share of the card, the JAX package's 9/16.  H100 80GB
+# HBM3, 700 W (scripts/measure_admission.py, PERF.md's routing-values
+# table, row 3): outside the plan a query peaks at 1.6-2.9 GB and a plan
+# build at 2.5 GB (60,000 points) and 23.2 GB (the 1.02 M-point stretch
+# room), so a plan at the 47.8 GB cap peaks at 71.0 of the card's 85.0 GB,
+# 14 GB of headroom; 10/16 would leave 8.7 GB
 _PLAN_MEM_FRACTION = 9.0 / 16.0
 
 
 def default_plan_bytes_cap(device=None) -> int:
-    """Budget for a plan's streams: 9/16 of the card's memory.  ``None``
-    means the current CUDA device when one is present (as JAX takes its
-    default device); off the card, the fixed 9 GB default."""
+    """Budget for a plan's streams: ``_PLAN_MEM_FRACTION`` of the card's
+    memory.  ``None`` means the current CUDA device when one is present (as
+    JAX takes its default device); off the card, the fixed 9 GB default."""
     if device is None:
         if not torch.cuda.is_available():
             return DEFAULT_PLAN_BYTES_CAP
@@ -148,16 +167,43 @@ def plan_bytes_estimate(n_pairs: int, n_points: int, compact: bool = False,
                * 1.25)
 
 
+# slab_worthwhile on the card: wall seconds a pair-point at init tables of
+# _CARD_TABLE_MB.  H100 80GB HBM3, 700 W (scripts/measure_admission.py,
+# PERF.md's routing-values table, row 1), 65,536-point clouds:
+# the gather engine at its chunk (gather_chunk: 64), the fastest seen; the
+# slab kernel a pair-point of whole 128-pair groups at the resolved
+# geometry, the slowest seen, f32 or the slower of compact and q8, without
+# and with the fused re-bake.  The plan wins 27-76x; the 0.7 margin is the
+# JAX package's
+_CARD_TABLE_MB = (6.3, 25.2, 100.8, 402.9)
+_CARD_GATHER_S = (1.146e-9, 1.130e-9, 1.137e-9, 1.169e-9)
+_CARD_SLAB_S = {  # (compact, refresh)
+    (False, False): (1.50e-11, 1.52e-11, 2.06e-11, 4.30e-11),
+    (False, True): (1.58e-11, 1.78e-11, 2.13e-11, 3.85e-11),
+    (True, False): (1.58e-11, 2.09e-11, 1.83e-11, 3.23e-11),
+    (True, True): (1.58e-11, 1.79e-11, 2.15e-11, 3.64e-11),
+}
+
+
 def slab_worthwhile(n_pairs: int, n_points: int, height: int, width: int,
-                    refresh: bool, compact: bool = False) -> bool:
-    """The JAX package's cost model of gather engine vs plan + kernel (+ the
-    per-query target re-bake that sharpen_color forces).  Its rates were
-    measured on a TPU and are carried over unchanged: they decide the
-    admission ladder here until H100 rates replace them."""
+                    refresh: bool, compact: bool = False,
+                    device=None) -> bool:
+    """Whether a plan and its kernel (with the per-query target re-bake
+    that sharpen_color forces) beat the gather engine for stage 1.  On a
+    CUDA ``device``: the card's measured rates (``_CARD_*``).  Elsewhere:
+    the JAX package's cost model and rates, so the ladder equals the JAX
+    package's."""
     table_mb = _table_rows(height, width) * 48 / 1e6
+    groups = (n_pairs + GROUP - 1) // GROUP
+    if on_card(device):
+        gather_s = float(np.interp(table_mb, _CARD_TABLE_MB, _CARD_GATHER_S))
+        slab_s = float(np.interp(table_mb, _CARD_TABLE_MB,
+                                 _CARD_SLAB_S[(bool(compact),
+                                               bool(refresh))]))
+        return (groups * GROUP * n_points * slab_s
+                < 0.7 * n_pairs * n_points * gather_s)
     gather_rate = float(np.interp(table_mb, [6.0, 25.0, 100.0],
                                   [2.7e8, 1.1e8, 4.5e7]))
-    groups = (n_pairs + GROUP - 1) // GROUP
     samples = groups * GROUP * n_points * 1.25
     gather_cost = n_pairs * n_points / gather_rate
     refresh_gathers = (1 if compact else 3) if refresh else 0
@@ -365,7 +411,7 @@ def plan_required_blocks(xyz, point_mask, trans_grid, rot_grid, height: int,
     xyz, pm, pair_t, pair_r, _ = _room_inputs(xyz, point_mask, trans_grid,
                                               rot_grid, dev)
     window, block = resolve_plan_geometry(xyz.shape[0], height, width,
-                                          window, block)
+                                          window, block, device=dev)
     n_win = _rpad(height, width, window) // window
     project = _group_projector(xyz, pm, pair_t, pair_r, height, width, wrap)
     return max(_blocks_needed(project(g)[0], n_win, window, block)
@@ -401,7 +447,7 @@ def build_grid_plan(xyz, rgb, point_mask, trans_grid, rot_grid, height: int,
     rgb = as_tensor(rgb, dev, torch.float32)
     n_groups = pair_t.shape[0] // GROUP
     window, block = resolve_plan_geometry(xyz.shape[0], height, width,
-                                          window, block)
+                                          window, block, device=dev)
     if quant and window > _Q8_MAX_WINDOW:
         raise ValueError(
             "q8 plans need window <= 256 (the 9-bit lidx field's sentinel "

@@ -13,6 +13,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..device import on_card
+
 __all__ = [
     "bilinear_sample",
     "pack_bilinear_blocks",
@@ -21,13 +23,19 @@ __all__ = [
     "cast_packed_table",
     "resolve_descent_table",
     "AUTO_BF16_TABLE_BYTES",
+    "AUTO_BF16_TABLE_BYTES_CARD",
 ]
 
 # ``descent_table = auto`` flips the descent's table to bf16 texels once the
-# f32 table would exceed this footprint.  The threshold is the JAX
-# package's, carried over unchanged; re-deciding it for the H100 is later
-# work.
+# f32 table would exceed this footprint: the JAX package's threshold, which
+# holds off the card
 AUTO_BF16_TABLE_BYTES = 64 * 10**6
+# the same on the card.  H100 80GB HBM3, 700 W (scripts/measure_admission.py,
+# PERF.md's routing-values table, row 5): a graphed 6 x 100 descent of
+# 65,536 points steps 16-19% faster on bf16 than on f32 at 6.3, 25, 101 and
+# 403 MB (1.02 M points at 403 MB: 27%), at the same median t_err over 8
+# poses at 6.3 and 25 MB; tables under the smallest size measured keep f32
+AUTO_BF16_TABLE_BYTES_CARD = 6 * 10**6
 
 _DTYPES = {
     "float32": torch.float32,
@@ -36,14 +44,18 @@ _DTYPES = {
 }
 
 
-def resolve_descent_table(dtype_str: str, height: int, width: int) -> str:
+def resolve_descent_table(dtype_str: str, height: int, width: int,
+                          device=None) -> str:
     """``auto`` -> ``bfloat16`` when the packed f32 table exceeds
-    :data:`AUTO_BF16_TABLE_BYTES`, else ``float32``; explicit dtypes pass
-    through."""
+    :data:`AUTO_BF16_TABLE_BYTES`, or on a CUDA ``device``
+    :data:`AUTO_BF16_TABLE_BYTES_CARD`, else ``float32``; explicit dtypes
+    pass through."""
     if dtype_str != "auto":
         return dtype_str
+    limit = (AUTO_BF16_TABLE_BYTES_CARD if on_card(device)
+             else AUTO_BF16_TABLE_BYTES)
     rows = (height + 1) * (width + 1)
-    return "bfloat16" if rows * 48 > AUTO_BF16_TABLE_BYTES else "float32"
+    return "bfloat16" if rows * 48 > limit else "float32"
 
 
 def _clip_coords(coords, clip: bool, wrap: bool):

@@ -147,9 +147,10 @@ def shard_grid_plan(mesh: Mesh, xyz, rgb, point_mask, trans_grid, rot_grid,
     cloud = shard_cloud(mesh, xyz, rgb, point_mask)
     n_cand, n_point = mesh.shape["cand"], mesh.shape["point"]
     per = cloud.rows // n_point
-    # one geometry and one block count for every shard
-    window, block = resolve_plan_geometry(per, height, width)
     devs = mesh.devices
+    # one geometry and one block count for every shard
+    window, block = resolve_plan_geometry(per, height, width,
+                                          device=devs[0, 0])
     trans = [as_tensor(trans_grid, devs[0, p], torch.float32)
              for p in range(n_point)]
     rot = [as_tensor(rot_grid, devs[0, p], torch.float32)

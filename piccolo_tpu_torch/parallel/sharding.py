@@ -332,7 +332,8 @@ def descent_local(mesh: Mesh, cloud: ShardedCloud, img, t0, ypr0, lo, hi,
     lead = mesh.lead
     H, W, _ = img.shape
     groups = _mesh_groups(mesh, cloud, img, lo, hi,
-                          resolve_descent_table(table_dtype, H, W), wrap)
+                          resolve_descent_table(table_dtype, H, W,
+                                                img.device), wrap)
     s = StepStatics(H, W, int(patience), float(factor), bool(wrap))
     b_l = t0.shape[0] // n_cand
 

@@ -30,6 +30,7 @@ from .init.refine import (
     HistPlan,
     _score_pairs,
     check_criterion,
+    gather_chunk,
     hist_scores_core,
     hist_scores_from_planes,
 )
@@ -117,7 +118,7 @@ def localize_query(
     patience: int = 5,
     factor: float = 0.9,
     masked: bool = False,
-    grid_chunk: int = 16,
+    grid_chunk: Optional[int] = None,
     hist_chunk: int = 4,
     plan: Optional[GridPlan] = None,
     plan_refresh_rgb: bool = False,
@@ -147,7 +148,8 @@ def localize_query(
     ``descent_table`` picks the descent table's texel dtype (``auto``,
     ``float32``, ``bfloat16``, ``uint8``); ``seam_wrap`` samples across the
     equirect seam; ``grid_chunk``/``hist_chunk`` bound how many poses the
-    gather engine and the live splat process at once.
+    gather engine and the live splat process at once (``grid_chunk=None``:
+    ``init.refine.gather_chunk`` of the cloud and device).
 
     ``descent_prune=(prune_iter, prune_keep)`` and
     ``descent_multires=(low_iters, stride)`` are the descent's speed modes
@@ -173,9 +175,11 @@ def localize_query(
     hi = as_tensor(hi, dev, f32)
     pm = as_tensor(point_mask, dev, torch.bool) if masked else None
     table_dtype = resolve_descent_table(descent_table, img_main.shape[0],
-                                        img_main.shape[1])
+                                        img_main.shape[1], dev)
     T, R = trans_grid.shape[0], rot_grid.shape[0]
     _check_plans(plan, hist_plan, img_init, T, R, seam_wrap, plan_refresh_rgb)
+    if grid_chunk is None:
+        grid_chunk = gather_chunk(xyz.shape[0], dev)
 
     # ---- stage 1: loss table over the candidate grid
     with record_function("localize.stage1_loss_table"):

@@ -793,7 +793,8 @@ def descend_starts(img, xyz, rgb, t0s, ypr0s, lo, hi, point_mask, num_iter,
     img_lo = img[::stride, ::stride].contiguous()
     h_lo, w_lo = int(img_lo.shape[0]), int(img_lo.shape[1])
     x_lo = x._replace(blocks=_packed_table(
-        img_lo, resolve_descent_table(table_arg, h_lo, w_lo), wrap))
+        img_lo, resolve_descent_table(table_arg, h_lo, w_lo, img_lo.device),
+        wrap))
     params, state, _, _ = _run(x_lo, s._replace(height=h_lo, width=w_lo),
                                params, state, k_low, eager=_eager)
     params, state, loss, _ = _run(x, s, params, state, num_iter - k_low,
@@ -833,7 +834,7 @@ def descend(img, xyz, rgb, trans0, ypr0, lo, hi,
         img, xyz, rgb, as_tensor(trans0, dev, torch.float32),
         as_tensor(ypr0, dev, torch.float32), as_tensor(lo, dev, torch.float32),
         as_tensor(hi, dev, torch.float32), pm, num_iter, lr, patience, factor,
-        resolve_descent_table(table_dtype, H, W), wrap, trajectory,
+        resolve_descent_table(table_dtype, H, W, dev), wrap, trajectory,
         prune=prune, multires=multires, table_arg=table_dtype,
         start_valid=sv, _eager=_eager,
     )

@@ -224,7 +224,7 @@ def track_steps_batched(imgs, xyz, rgb, prev_ts, prev_yprs, lo, hi,
     _use_exec_cache(exec_cache_dir, dev)
     imgs = as_tensor(imgs, dev, torch.float32)
     K, H, W, _ = imgs.shape
-    dtype = resolve_descent_table(table_dtype, H, W)
+    dtype = resolve_descent_table(table_dtype, H, W, dev)
     blocks = torch.cat([_packed_table(img, dtype, wrap) for img in imgs])
     offset = None
     if K > 1:

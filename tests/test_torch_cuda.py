@@ -21,6 +21,8 @@ the one-card mesh's bits, and ``query_devices = 2`` serves on both cards
 (these two skip on one card).  The executable cache builds the three
 kernel libraries and the JPEG codec, then hits all four; a graph captured
 under ``utils.maybe_trace`` gives the bits of one captured without it.
+Stage 1's pick at the library's and the Stanford CLI's shapes is the f32
+plan, whole, and it scores faster than the gather engine.
 """
 
 import dataclasses
@@ -434,6 +436,66 @@ def test_served_request_equals_run_fused(dev):
     np.testing.assert_array_equal(out["t"], res.t.cpu().numpy())
     assert out["loss"] == float(res.loss)
     assert np.linalg.norm(out["t"] - np.float32([0.4, -0.2, 0.15])) < 0.2
+
+
+@pytest.mark.parametrize("shape", ["library", "stanford.ini"])
+def test_stage1_pick_on_the_card(dev, shape):
+    """The ladder's stage-1 pick on the card at the library's shapes (60,000
+    points, 512x256 init, 50 trans x 8 yaws) and the Stanford CLI's
+    (1024x512 init, configs/stanford.ini's grids and its sharpen_color
+    re-bake): the f32 plan, whole, at the card's geometry, and it scores
+    stage 1 faster than the gather engine at the card's chunk."""
+    import os
+    import time
+
+    from piccolo_tpu_torch.config import make_config, parse_ini
+    from piccolo_tpu_torch.harness import localize as hl
+    from piccolo_tpu_torch.init.candidates import default_init_dict
+    from piccolo_tpu_torch.init.refine import _score_pairs, gather_chunk
+
+    rng = np.random.default_rng(7)
+    xyz, rgb = make_room(rng, n_per_wall=10000, texture="checker")
+    xyz_d, rgb_d, mask_d = hl._pad_cloud(xyz, rgb, dev)
+    if shape == "library":
+        init = default_init_dict(xy_only=True, yaw_only=True, num_yaw=8,
+                                 num_split_h=4, num_split_w=4, num_trans=50,
+                                 z_prior=None)
+        hw, sharpen = (256, 512), False
+    else:
+        ini = os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "configs", "stanford.ini")
+        init, hw, sharpen = hl.get_init_dict(parse_ini(ini)), (512, 1024), True
+    grids = hl._FusedGrids(xyz, init, dev)
+    img = render_at(xyz, rgb, np.float32([0.4, -0.2, 0.15]),
+                    np.float32([0.9, 0, 0]), hw, device=dev)
+    cfg = make_config(dataset="Stanford2D-3D-S", sharpen_color=sharpen,
+                      slab_init="auto", slab_background_build=False)
+    cache = dict(xyz=xyz_d, rgb=rgb_d, mask=mask_d, device=dev)
+    n_pairs = grids.n_trans * int(grids.rot.shape[0])
+    adm = hl._slab_admission(cfg, cache, grids, img)
+    assert adm is not None and not adm["compact"] and not adm["quant"]
+    assert adm["n_t_build"] == grids.n_trans
+    plan = hl._maybe_slab_plan(cfg, cache, grids, img, sync=True)
+    assert plan is not None and not plan.compact
+    assert plan.n_pairs == n_pairs
+    assert (plan.window, plan.block) == slab.resolve_plan_geometry(
+        int(mask_d.shape[0]), *hw, device=dev) == (128, 1024)
+    pair_t, pair_r = slab.make_pairs(grids.trans[:grids.n_trans], grids.rot)
+    chunk = gather_chunk(int(mask_d.shape[0]), dev)
+    palette = rgb_d if sharpen else None
+
+    def wall(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    t_slab = wall(lambda: slab.slab_pair_scores(img, plan, palette))
+    t_gather = wall(lambda: _score_pairs(img, xyz_d, rgb_d, pair_t, pair_r,
+                                         mask_d, chunk))
+    assert t_slab < t_gather, (t_slab, t_gather)
 
 
 @pytest.fixture

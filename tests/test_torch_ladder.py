@@ -5,6 +5,12 @@
   * Admission decisions equal the JAX package's, layout by layout (f32,
     compact, q8, partial q8, refused), with and without the sharpen
     re-bake copy; ``slab_worthwhile`` equals the JAX cost model.
+  * On a CUDA device (a ``torch.device("cuda")`` object, no card needed)
+    the routing values are the H100's: the cost model admits the plan at
+    every shape the repo runs, the plan geometry, the descent table and
+    the plan budget follow the card's values, a card room under
+    sharpen_color admits the f32 plan, and the gather engine's chunk rule
+    keeps every score's bits.
   * The lifecycle: plans build in line by default with no disk cache; the
     background build hands its plan to a later query; an f32 plan over
     budget demotes to compact once; a compact plan over budget is retried
@@ -356,3 +362,174 @@ def test_explicit_disk_cache_persists_then_loads(scene, monkeypatch, tmp_path):
     img = torch.tensor(scene["img"])
     assert torch.equal(sm.slab_pair_scores(img, plan),
                        sm.slab_pair_scores(img, plan2))
+
+
+# ---------------------------------------------------------------------------
+# the card's routing values (a torch.device("cuda") object needs no card)
+
+CARD = torch.device("cuda")
+H100_BYTES = 85_017_493_504  # an H100 80GB HBM3's mem_get_info total
+
+# (pairs, points, init height, init width): stanford.ini's full grid, the
+# CLI tree's (chip_smoke.py runs A and D), the library room, OmniScenes
+# (2048x1024 init) and the 1.02 M-point stretch room
+CARD_SHAPES = {
+    "stanford.ini grid": (3200, 60000, 512, 1024),
+    "stanford.ini CLI tree": (1080, 65536, 512, 1024),
+    "library": (432, 65536, 256, 512),
+    "omniscenes.ini": (1200, 65536, 1024, 2048),
+    "stretch": (432, 1048576, 512, 1024),
+}
+
+
+@pytest.mark.parametrize("compact", [False, True])
+@pytest.mark.parametrize("refresh", [False, True])
+@pytest.mark.parametrize("shape", list(CARD_SHAPES))
+def test_slab_worthwhile_admits_the_plan_on_the_card(shape, refresh,
+                                                     compact):
+    """On the card the plan beats the gather engine at every shape the repo
+    runs, re-bake or not; the JAX package's model still refuses the
+    stanford.ini grid under sharpen_color's re-bake off the card."""
+    torch.set_num_threads(1)
+    args = CARD_SHAPES[shape]
+    assert sm.slab_worthwhile(*args, refresh=refresh, compact=compact,
+                              device=CARD)
+    if shape.startswith("stanford.ini") and refresh and not compact:
+        assert not sm.slab_worthwhile(*args, refresh=refresh,
+                                      compact=compact)
+        assert not sm.slab_worthwhile(*args, refresh=refresh,
+                                      compact=compact, device="cpu")
+
+
+@pytest.mark.parametrize("table_hw", [(256, 512), (512, 1024), (1024, 2048),
+                                      (2048, 4096)])
+def test_slab_worthwhile_card_sweep(table_hw):
+    """The measured sweep (6-403 MB tables): the plan wins from one group
+    of pairs up to 20,000; a lone pair, which pays a whole 128-pair group,
+    stays on the gather engine."""
+    torch.set_num_threads(1)
+    for n_pairs in (128, 1152, 4096, 20000):
+        for refresh in (False, True):
+            for compact in (False, True):
+                assert sm.slab_worthwhile(n_pairs, 65536, *table_hw,
+                                          refresh=refresh, compact=compact,
+                                          device=CARD)
+    assert not sm.slab_worthwhile(1, 65536, *table_hw, refresh=True,
+                                  device=CARD)
+
+
+@pytest.mark.parametrize("n_points,hw,card,jax_rule", [
+    (65536, (256, 512), (128, 1024), (128, 1024)),   # library, density 0.50
+    (65536, (512, 1024), (128, 1024), (256, 512)),   # CLI, 0.125
+    (65536, (1024, 2048), (256, 512), (256, 512)),   # OmniScenes, 0.031
+    (65536, (2048, 4096), (256, 512), (256, 512)),   # 403 MB, 0.0078
+    (1048576, (512, 1024), (128, 1024), (128, 1024)),  # stretch, 2.0
+])
+def test_plan_geometry_on_the_card(n_points, hw, card, jax_rule):
+    torch.set_num_threads(1)
+    assert sm.resolve_plan_geometry(n_points, *hw, device=CARD) == card
+    assert sm.resolve_plan_geometry(n_points, *hw) == jax_rule
+    assert sm.resolve_plan_geometry(n_points, *hw, device="cpu") == jax_rule
+    assert jsm.resolve_plan_geometry(n_points, *hw) == jax_rule
+    # explicit values win on the card too
+    assert sm.resolve_plan_geometry(n_points, *hw, window=512, block=256,
+                                    device=CARD) == (512, 256)
+
+
+@pytest.mark.parametrize("hw,card,jax_rule", [
+    ((32, 64), "float32", "float32"),        # 0.1 MB, under the card's 6 MB
+    ((256, 512), "bfloat16", "float32"),     # 6.3 MB
+    ((512, 1024), "bfloat16", "float32"),    # 25 MB: library and CLI
+    ((1024, 2048), "bfloat16", "bfloat16"),  # 101 MB: OmniScenes
+    ((2048, 4096), "bfloat16", "bfloat16"),  # 403 MB: stretch
+])
+def test_descent_table_on_the_card(hw, card, jax_rule):
+    from piccolo_tpu.ops import sampling as jsamp
+    from piccolo_tpu_torch.ops import sampling as tsamp
+
+    torch.set_num_threads(1)
+    assert tsamp.resolve_descent_table("auto", *hw, CARD) == card
+    assert tsamp.resolve_descent_table("auto", *hw) == jax_rule
+    assert tsamp.resolve_descent_table("auto", *hw, "cpu") == jax_rule
+    assert jsamp.resolve_descent_table("auto", *hw) == jax_rule
+    assert tsamp.resolve_descent_table("float32", *hw, CARD) == "float32"
+
+
+def test_default_plan_bytes_cap_on_the_card(monkeypatch):
+    torch.set_num_threads(1)
+    seen = []
+
+    def mem_get_info(device=None):
+        seen.append(device)
+        return 0, H100_BYTES
+
+    monkeypatch.setattr(torch.cuda, "mem_get_info", mem_get_info)
+    want = int(H100_BYTES * 9 / 16)
+    assert sm.default_plan_bytes_cap(CARD) == want
+    assert sm.default_plan_bytes_cap("cuda:1") == want
+    assert seen == [CARD, torch.device("cuda:1")]
+    assert sm.default_plan_bytes_cap("cpu") == sm.DEFAULT_PLAN_BYTES_CAP
+
+
+@pytest.mark.parametrize("sharpen", [False, True])
+def test_admission_picks_the_f32_plan_for_a_card_room(scene, monkeypatch,
+                                                      sharpen):
+    """A room on the card admits the f32 plan, whole, under sharpen_color
+    too (the re-bake is fused and the card's rates decide); the same room
+    on the CPU with the CPU rule lifted takes the JAX package's decision,
+    which refuses the re-bake."""
+    torch.set_num_threads(1)
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda device=None: (0, H100_BYTES))
+    cache, grids = _room(scene)
+    cache["device"] = CARD
+    got = hl._slab_admission_uncached(
+        _cfg(sharpen_color=sharpen, slab_init="auto"), cache, grids,
+        scene["img"])
+    cap = int(H100_BYTES * 9 / 16)
+    m = 2.0 if sharpen else 1.0
+    assert got == dict(mode="auto", n_t=N_T, n_t_build=N_T, compact=False,
+                       quant=False,
+                       cap=dict(f32=int(cap / m),
+                                compact=int(cap / (1.25 if sharpen else 1)),
+                                q8=int(cap / (1.5 if sharpen else 1))),
+                       sharpen=sharpen, wrap=False)
+    cpu_cache, _ = _room(scene)
+    monkeypatch.setattr(hl, "_auto_plans_off", lambda device: False)
+    on_cpu = hl._slab_admission_uncached(
+        _cfg(sharpen_color=sharpen, slab_init="auto"), cpu_cache, grids,
+        scene["img"])
+    assert (on_cpu is None) == sharpen
+
+
+def test_gather_chunk_rule():
+    from piccolo_tpu_torch.init.refine import gather_chunk
+
+    torch.set_num_threads(1)
+    assert [gather_chunk(n, CARD) for n in
+            (4096, 49152, 65536, 98304, 131072, 196608, 1048576)] == \
+        [64, 64, 64, 32, 32, 16, 16]
+    assert gather_chunk(4096, "cpu") == 16
+    assert gather_chunk(65536, torch.device("cpu")) == 16
+
+
+@pytest.mark.parametrize("n_pairs", [200, 512])
+def test_gather_scores_equal_at_every_chunk(scene, n_pairs):
+    """The gather engine's scores are the same bits at chunk 16 (the JAX
+    package's) and at the card's default for this cloud (64), on the CPU:
+    each pair's loss is summed within its own chunk."""
+    from piccolo_tpu_torch.init.refine import _score_pairs, gather_chunk
+
+    torch.set_num_threads(1)
+    cache, grids = _room(scene)
+    pair_t, pair_r = sm.make_pairs(grids.trans, grids.rot)
+    pair_t, pair_r = pair_t[:n_pairs], pair_r[:n_pairs]
+    img = torch.tensor(scene["img"])
+    chunk = gather_chunk(int(cache["xyz"].shape[0]), CARD)
+    assert chunk == 64
+    ref = _score_pairs(img, cache["xyz"], cache["rgb"], pair_t, pair_r,
+                       cache["mask"], 16)
+    for c in (chunk, 32, n_pairs):
+        got = _score_pairs(img, cache["xyz"], cache["rgb"], pair_t, pair_r,
+                           cache["mask"], c)
+        assert torch.equal(got, ref), c
