@@ -191,6 +191,15 @@ Phases (any failure exits non-zero; each prints its seconds):
      pick and the route it refused, both timed in turns (host clock,
      synchronised); each fails when its pick takes ROUTING_SLOWER (2x)
      the other's time or more.  A `routing:` line holds every row.
+ 36. the synthetic accuracy evaluation (after phase 23): ``python -m
+     piccolo_tpu_torch.eval_synth``'s main at 3 rooms x 2 queries in two
+     arms, the Stanford profile's splat oracle with descent_table auto
+     (bf16 on the card) and its ray-cast oracle with sharpen (the f32
+     plan's re-bake fused); each arm must localize every query under the
+     Stanford criterion, as the JAX package's records do, and launch one f32
+     slab kernel a plan group a query and one block histogram a query
+     (neither compact nor q8); both kernels are held against their plain
+     versions at the arm's shapes.  Each summary is printed on a line.
 On one card phases 25 and 26 print that they need two cards.
 Every descent above runs its captured graph (solver.py), and every
 profiled query reports its kernel and graph launches.  Then the routing
@@ -4004,6 +4013,131 @@ def phase_routing_stretch(dev):
     torch.cuda.empty_cache()
 
 
+# phase 36: the synthetic accuracy evaluation at reduced depth (3 rooms x 2
+# queries an arm); both arms localize every query in the JAX package's
+# records (README, docs/ROUND3.md)
+EVAL_DEPTH = ["--rooms", "3", "--queries", "2"]
+EVAL_ARMS = (
+    ("eval_auto", "Stanford profile, splat oracle, descent_table auto",
+     ["--descent-table", "auto"]),
+    ("eval_sharpen", "Stanford profile, ray-cast oracle, sharpen",
+     ["--oracle", "raycast", "--sharpen"]),
+)
+
+
+def _eval_f32_row(name, path, plan, img, rgb, launches, n_q):
+    """A kernels row of the f32 group sums at the evaluation's shapes: every
+    group of a room's plan against the plain version with a query's init
+    image (and, when the query re-bakes, its colours fused), group 0
+    timed."""
+    from piccolo_tpu_torch.kernels import slab_sampling as slab
+
+    table = slab.slab_table(img, wrap=plan.wrap, window=plan.window)
+    rgb4 = None if rgb is None else slab._rgb4(rgb)
+    err = 0.0
+    for g, (f, w) in enumerate(zip(plan.fields, plan.windows)):
+        got = slab.slab_group_sums_f32(table, f, w, plan.window, rgb4)
+        want = slab.slab_group_sums_f32_plain(table, f, w, plan.window, rgb4)
+        torch.cuda.synchronize()
+        if not torch.equal(got[1], want[1]):
+            raise AssertionError(f"{name}: f32 slab counts differ from the "
+                                 f"plain version in group {g}")
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+        err = max(err, float((got[0] - want[0]).abs().max()))
+    f, w = plan.fields[0], plan.windows[0]
+    samples, pads, _, n_win = _f32_plan_stats(f, w)
+    nbytes, _ = _f32_bytes(samples, pads, f.shape[0], n_win, plan.window,
+                           0 if rgb is None else rgb.shape[0])
+    bound_ms, bound_by = _bound(nbytes, samples * F32_OPS_PER_SAMPLE)
+    row = dict(
+        name=name, route="cuda",
+        source="piccolo_tpu_torch/kernels/csrc/slab_sampling.cu",
+        replaces="piccolo_tpu/kernels/slab_sampling.py:677", path=path,
+        launches=launches, launches_per_query=launches / n_q,
+        max_abs_err=err,
+        ms=cuda_ms(lambda: slab.slab_group_sums_f32(table, f, w, plan.window,
+                                                    rgb4)),
+        plain_ms=cuda_ms(lambda: slab.slab_group_sums_f32_plain(
+            table, f, w, plan.window, rgb4)),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    log(f"{name}: all {len(plan.fields)} groups of room 0's plan (window "
+        f"{plan.window}, block {plan.block}, re-bake "
+        f"{'fused' if rgb is not None else 'off'}) counts exact, max |sum "
+        f"err| {err:.3g}; group 0 {row['ms']:.4f} ms (plain "
+        f"{row['plain_ms']:.4f}, bound {bound_ms:.4f} by {bound_by})")
+    return row
+
+
+def phase_eval_synth(dev):
+    """python -m piccolo_tpu_torch.eval_synth's main at reduced depth, each
+    arm with the wrapper counts set to 0 just before it and read just
+    after: Stanford accuracy 1.0, one f32 slab launch a plan group a query
+    and one block histogram a query, no compact or q8 launch (a room that
+    fell back to the gather engine or a compact plan fails); then both
+    kernels held against their plain versions at the arm's shapes (room 0's
+    plan and first query, the first stage-2 call)."""
+    from piccolo_tpu_torch import eval_synth
+
+    real_run = eval_synth.run_query
+    rows = []
+    for key, label, argv in EVAL_ARMS:
+        # a query: its room's f32 plan groups (None: gather engine or a
+        # compact plan); the first query and its room
+        groups, first = [], {}
+
+        def run_query(args, room, q, dev_):
+            plan = room.plan
+            groups.append(None if plan is None or plan.compact
+                          else len(plan.fields))
+            first.setdefault("room", room)
+            first.setdefault("q", q)
+            return real_run(args, room, q, dev_)
+
+        stage2 = {}
+        out = io.StringIO()
+        eval_synth.run_query = run_query
+        try:
+            _zero_counts()
+            with _recording_stage2(stage2), contextlib.redirect_stdout(out):
+                summary = eval_synth.main(EVAL_DEPTH + argv)
+            counts = {k: v["total"] for k, v in _read_counts().items()}
+        finally:
+            eval_synth.run_query = real_run
+        for line in out.getvalue().splitlines():
+            log(f"eval_synth {key}: {line}")
+        log(f"eval_synth {key} ({label}) summary: {json.dumps(summary)}; "
+            f"launches {counts}")
+        n_q = len(groups)
+        if summary["queries"] != n_q or n_q != 6:
+            raise AssertionError(f"{key}: {summary['queries']} queries "
+                                 f"scored, {n_q} run")
+        if not (math.isfinite(summary["median_t_err_m"])
+                and summary["stanford_accuracy"] == 1.0):
+            raise AssertionError(f"{key}: Stanford accuracy "
+                                 f"{summary['stanford_accuracy']} (the JAX "
+                                 "package's record is 1.0)")
+        if None in groups:
+            raise AssertionError(f"{key}: a query ran without an f32 slab "
+                                 f"plan (groups a query: {groups})")
+        want = dict(slab_group_sums_f32=sum(groups), block_histogram=n_q,
+                    slab_group_sums_compact=0, slab_group_sums_q8=0)
+        got = {k: counts[k] for k in want}
+        if got != want:
+            raise AssertionError(f"{key}: launches {got}, expected {want}")
+        room, q = first["room"], first["q"]
+        path = f"eval_synth {label}, 3 rooms x 2 queries"
+        rows.append(_eval_f32_row(
+            f"slab_group_sums_f32.{key}", path, room.plan, q.img_init,
+            q.rgb_used if q.refresh else None, got["slab_group_sums_f32"],
+            n_q))
+        (_, _, nbins), (ids, mask) = next(iter(stage2.items()))
+        rows.append(_recorded_bh_row(f"block_histogram.{key}", path, ids,
+                                     mask, nbins, n_q, n_q))
+        del first, room, q, stage2
+        torch.cuda.empty_cache()
+    return rows
+
+
 def timed(name, fn, *args):
     t0 = time.time()
     out = fn(*args)
@@ -4070,6 +4204,8 @@ def main():
               tracking["tracking"]["tracked_s"])
         timed("omniscenes batched tracking", phase_omni_batch, o, omni, dev)
         del o
+        torch.cuda.empty_cache()
+        rows += timed("eval_synth", phase_eval_synth, dev)
         fused = runs["fused"]["launches"]
         for row in omni_rows:
             kernel = row["name"].split(".")[0]

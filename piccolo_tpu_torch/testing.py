@@ -29,7 +29,7 @@ __all__ = ["make_room", "make_cluttered_room", "random_pose_inside",
            "pose_outside_occluders", "render_at", "RoomScene",
            "make_scene", "scene_pose", "scene_cloud", "raycast_pano",
            "IMAGE_REALISM_ARMS", "CLOUD_REALISM_ARMS", "apply_image_realism",
-           "apply_cloud_realism", "write_synth_stanford",
+           "apply_cloud_realism", "REALISM_DEFAULTS", "write_synth_stanford",
            "write_synth_omniscenes", "edge_plan_group"]
 
 _WALL_FACES = ((0, 1), (0, -1), (1, 1), (1, -1), (2, 1), (2, -1))
@@ -450,6 +450,9 @@ _ROOM_SIZES = [
 
 IMAGE_REALISM_ARMS = ("noise", "jpeg", "blur", "vignette")
 CLOUD_REALISM_ARMS = ("depth-noise", "holes")
+# each arm's strength when none is given
+REALISM_DEFAULTS = {"noise": 0.02, "jpeg": 60, "blur": 9, "vignette": 0.4,
+                    "depth-noise": 0.01, "holes": 0.10}
 
 
 def apply_image_realism(u8: np.ndarray, arm: str, val: float,
@@ -545,9 +548,23 @@ def _write_cloud(path: str, xyz: np.ndarray, rgb: np.ndarray) -> None:
     np.savetxt(path, cols, fmt="%.6f %.6f %.6f %d %d %d")
 
 
+def _realism_strength(oracle: str, realism, realism_val):
+    """The arm's strength (its default when none is given); a realism arm
+    needs the ray-cast oracle."""
+    if realism is None:
+        return None
+    if oracle != "raycast":
+        raise ValueError("a realism arm needs oracle='raycast'")
+    if realism not in REALISM_DEFAULTS:
+        raise ValueError(f"unknown realism arm {realism!r} "
+                         f"(have {tuple(REALISM_DEFAULTS)})")
+    return REALISM_DEFAULTS[realism] if realism_val is None else realism_val
+
+
 def write_synth_stanford(root: str, rooms: int = 1, queries: int = 3,
                          points: int = 30000, height: int = 512,
-                         seed: int = 7, oracle: str = "raycast") -> None:
+                         seed: int = 7, oracle: str = "raycast",
+                         realism=None, realism_val=None) -> None:
     """Write a synthetic Stanford2D-3D-S tree under ``root``: clouds,
     panoramas (PNG) and pose JSONs in the dataset's layout, so the CLI runs
     on it with no download.  Same file names, cloud format, poses and
@@ -555,15 +572,21 @@ def write_synth_stanford(root: str, rooms: int = 1, queries: int = 3,
 
     ``oracle="raycast"`` renders dense camera-like panoramas of cluttered
     rooms; ``"splat"`` z-buffers the cloud itself (on the CPU).
+    ``realism`` (ray-cast only) degrades every panorama
+    (``IMAGE_REALISM_ARMS``) or every cloud (``CLOUD_REALISM_ARMS``) at
+    strength ``realism_val`` (default ``REALISM_DEFAULTS[realism]``).
+    ``seed`` may also be a ``np.random.Generator`` to draw from.
     """
     from .harness.imaging import imwrite_rgb
 
-    rng = np.random.default_rng(seed)
+    realism_val = _realism_strength(oracle, realism, realism_val)
+    rng = np.random.default_rng(seed)  # a Generator comes back as it is
     area = 1
     for ri in range(rooms):
         size = _ROOM_SIZES[ri % len(_ROOM_SIZES)]
-        xyz, rgb, render, sample_pose, _ = _room_oracle(rng, size, points,
-                                                        oracle)
+        xyz, rgb, render, sample_pose, _ = _room_oracle(
+            rng, size, points, oracle, realism=realism,
+            realism_val=realism_val)
         room_type, room_no = "office", str(ri + 1)
         _write_cloud(
             os.path.join(root, "stanford", "pcd_not_aligned", f"area_{area}",
@@ -592,19 +615,29 @@ def write_synth_stanford(root: str, rooms: int = 1, queries: int = 3,
                 json.dump(pose, f)
 
 
-def _room_oracle(rng, size, points, oracle, floor_at_zero=False):
+def _room_oracle(rng, size, points, oracle, floor_at_zero=False,
+                 realism=None, realism_val=None):
     """A room's cloud, a renderer ``render(t, ypr, resolution)`` and a pose
     sampler ``pose(z_range=None)``, drawing from ``rng`` as
-    ``scripts/make_synth_dataset.py`` does; also the occluder boxes."""
+    ``scripts/make_synth_dataset.py`` does; also the occluder boxes.  A
+    cloud realism arm degrades the cloud once, an image arm each render."""
     if oracle not in ("raycast", "splat"):
         raise ValueError(f"oracle must be 'raycast' or 'splat', got {oracle!r}")
     if oracle == "raycast":
         scene = make_scene(rng, size=size, n_occluders=2, texture="checker",
                            floor_at_zero=floor_at_zero)
         xyz, rgb = scene_cloud(scene, rng, points)
+        if realism in CLOUD_REALISM_ARMS:
+            xyz, rgb = apply_cloud_realism(xyz, rgb, realism, realism_val,
+                                           rng)
 
         def render(t, ypr, resolution):
-            return raycast_pano(scene, t, ypr, resolution)
+            img = raycast_pano(scene, t, ypr, resolution)
+            if realism in IMAGE_REALISM_ARMS:
+                u8 = (img * 255).astype(np.uint8)
+                img = apply_image_realism(u8, realism, realism_val,
+                                          rng).astype(np.float32) / 255.0
+            return img
 
         def pose(z_range=None):
             return scene_pose(scene, rng, z_range=z_range)
@@ -632,7 +665,8 @@ def _inside_any(t, occluders, clearance=0.15) -> bool:
 
 def write_synth_omniscenes(root: str, rooms: int = 1, queries: int = 3,
                            points: int = 30000, height: int = 512,
-                           seed: int = 7, oracle: str = "raycast") -> None:
+                           seed: int = 7, oracle: str = "raycast",
+                           realism=None, realism_val=None) -> None:
     """Write a synthetic OmniScenes tree under ``root`` (split "extreme"):
     clouds, panoramas (JPEG q95, by the port's own encoder) and ``[R|t]``
     pose files in the dataset's layout.  Same file names, clouds, poses and
@@ -642,14 +676,17 @@ def write_synth_omniscenes(root: str, rooms: int = 1, queries: int = 3,
     Ray-cast rooms are floor-referenced (floor at z = 0), so the shipped
     ``z_prior = 1.5`` applies, and a video is a handheld walk: after a
     first pose at 1.3-1.7 m, each frame moves ~2 cm and turns ~0.9 deg,
-    keeps its height band and never steps into an occluder."""
+    keeps its height band and never steps into an occluder.  ``realism``,
+    ``realism_val`` and ``seed`` as in :func:`write_synth_stanford`."""
     from .harness.imaging import imwrite_rgb
 
+    realism_val = _realism_strength(oracle, realism, realism_val)
     rng = np.random.default_rng(seed)
     for ri in range(rooms):
         size = _ROOM_SIZES[ri % len(_ROOM_SIZES)]
         xyz, rgb, render, sample_pose, occluders = _room_oracle(
-            rng, size, points, oracle, floor_at_zero=True)
+            rng, size, points, oracle, floor_at_zero=True, realism=realism,
+            realism_val=realism_val)
         room_type, room_no = "pyebang", str(ri + 1)
         _write_cloud(os.path.join(root, "omniscenes", "pcd",
                                   f"{room_type}_{room_no}.txt"), xyz, rgb)

@@ -13,7 +13,13 @@ import pytest
 import torch
 
 import piccolo_tpu_torch
-from piccolo_tpu_torch import build_grid_plan, build_hist_plan, localize_query
+from piccolo_tpu_torch import (
+    build_grid_plan,
+    build_hist_plan,
+    demo,
+    eval_synth,
+    localize_query,
+)
 from piccolo_tpu_torch.serve import LocalizeService
 from piccolo_tpu_torch.tracking import track_step, track_step_prepped_fetched
 
@@ -55,6 +61,19 @@ def test_parallel_imports_alone_without_jax():
     assert out[:2] == ["[]", "piccolo_tpu_torch.parallel.sharding"]
 
 
+@pytest.mark.parametrize("module", ["eval_synth", "synth_dataset", "demo"])
+def test_tools_import_alone_without_jax(module):
+    """The evaluation, the dataset generator and the demo, each on its own,
+    pull in no JAX and nothing of the JAX package."""
+    probe = (f"import sys, piccolo_tpu_torch.{module} as m; "
+             "print(sorted(k for k in sys.modules if k.split('.')[0] in "
+             "('jax', 'jaxlib', 'piccolo_tpu'))); print(callable(m.main))")
+    out = subprocess.run([sys.executable, "-c", probe], check=True,
+                         capture_output=True, text=True,
+                         cwd=PKG.parent).stdout.split("\n")
+    assert out[:2] == ["[]", "True"]
+
+
 def test_sources_never_import_jax_or_the_reference_package():
     pat = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+piccolo_tpu\b(?!_torch)"
                      r"|from\s+piccolo_tpu\b(?!_torch))", re.M)
@@ -73,7 +92,8 @@ def test_sources_never_import_cv2_or_pil():
 
 @pytest.mark.parametrize("entry", ["localize_query", "build_grid_plan",
                                    "build_hist_plan", "LocalizeService",
-                                   "track_step", "track_step_prepped_fetched"])
+                                   "track_step", "track_step_prepped_fetched",
+                                   "eval_synth", "demo"])
 def test_entry_points_raise_without_a_card(monkeypatch, entry):
     """Without CUDA, an entry point called without device= raises instead
     of running the plain path on the CPU."""
@@ -92,6 +112,8 @@ def test_entry_points_raise_without_a_card(monkeypatch, entry):
         "track_step_prepped_fetched": lambda: track_step_prepped_fetched(
             np.zeros((8, 16, 3), np.uint8), z3, z3, z3[0], z3[0], z3[0],
             z3[0] + 1),
+        "eval_synth": lambda: eval_synth.main(["--rooms", "1"]),
+        "demo": lambda: demo.main(["--points", "600"]),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
