@@ -200,6 +200,32 @@ Phases (any failure exits non-zero; each prints its seconds):
      slab kernel a plan group a query and one block histogram a query
      (neither compact nor q8); both kernels are held against their plain
      versions at the arm's shapes.  Each summary is printed on a line.
+ 37-40. the measurement scripts of scripts/ (after phase 36) at a reduced
+     depth, their mains and modes in this process (37-39) or in two fresh
+     processes (40), each with the kernel counts set to 0 just before it
+     and read just after:
+ 37. measure_tracking_cuda.py --frames 20 --teleport (1024x512, 60,000
+     points): recovery at frame 10 alone, median t_err under 10 mm, no
+     descent graph captured or recaptured after frame 2, one block
+     histogram a full query (seed and recovery) and none a tracked frame;
+     the block histogram held against its plain version on the seed's
+     stage-2 call;
+ 38. measure_serving_cuda.py's in-process modes, its executable cache in a
+     directory of the run: sustained at 10 queries (last5 median at most
+     1.5x first5), room-auto with the probe off over its four rooms x 3
+     queries (12/12, each room's route printed), track-streams at 2
+     streams x 4 frames with track_batch (median t_err under 0.02 m); the
+     f32 group sums and the block histogram held against their plain
+     versions on sustained's first stage-1 and stage-2 calls;
+ 39. measure_plan_lifecycle_cuda.py at 60,000 points, 1024x512, 3 queries:
+     --sync (the f32 plan resident from q0, one f32 launch a group a query)
+     and the background default (the plan resident by the last query, the
+     f32 kernel launched once it is); the f32 group sums held against
+     their plain version on the --sync run's stage-1 call;
+ 40. measure_sharded_coldstart_cuda.py in two fresh processes on one
+     executable-cache directory (60,000 points, 1024x512, a 1 x 1 mesh):
+     restart false then true, every library of the second a hit, equal
+     t_err, one block histogram a query counted in each process.
 On one card phases 25 and 26 print that they need two cards.
 Every descent above runs its captured graph (solver.py), and every
 profiled query reports its kernel and graph launches.  Then the routing
@@ -4138,6 +4164,305 @@ def phase_eval_synth(dev):
     return rows
 
 
+# ---- the measurement scripts (phases 37-40): scripts/*_cuda.py's mains at
+# reduced depth, each mode with the wrapper counts set to 0 just before it
+# and read just after
+
+TRACK_SCRIPT_ARGS = ["--frames", "20", "--teleport"]  # 1024x512, 60k points
+TRACK_SCRIPT_T_ERR_MM = 10.0
+SERVING_SUSTAINED = 10
+SERVING_DRIFT = 1.5  # last5 median against first5
+# track-streams' median t_err over its 2 x 4 tracked frames, run twice.
+# With descent_table=float32, the JAX package's table at 1024x512: 7.3 mm
+# in three runs on an H100 (700 W), 9.0 mm for the port and 8.4 mm for the
+# JAX package on the CPU (one ulp of a warm start moves a tracked pose by
+# up to 6.2 mm in the port and 2.4 mm in the JAX package, so each stream
+# follows its own path; ROADMAP Queue 3).  With the port's default,
+# descent_table=auto, the card takes bf16 texels from 6 MB on
+# (ops.sampling.AUTO_BF16_TABLE_BYTES_CARD) where the JAX package keeps
+# f32 up to 64 MB: 13.0 mm in the same three runs, the bf16 table's cost
+TRACK_STREAMS_T_ERR_M = {"float32": 0.01, "auto": 0.02}
+LIFECYCLE_ARGS = ["--points", "60000", "--height", "512", "--queries", "3"]
+SHARDED_ARGS = ["--points", "60000", "--height", "512"]
+
+
+def _measure_script(name):
+    """A measurement script of ``scripts/`` as a module (its ``main`` and
+    mode functions)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"measure_{name}", os.path.join(ROOT, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def _recording_stage1(calls):
+    """Stage 1's slab scores as the pipeline calls them, the first call's
+    init image, plan and re-bake colours kept: the kernel's wrapper still
+    runs and counts."""
+    from piccolo_tpu_torch import pipeline
+
+    real = pipeline.slab_pair_scores
+
+    def recorded(img, plan, rgb=None):
+        if not calls:
+            calls.append((img.clone(), plan,
+                          None if rgb is None else rgb.clone()))
+        return real(img, plan, rgb)
+
+    pipeline.slab_pair_scores = recorded
+    try:
+        yield
+    finally:
+        pipeline.slab_pair_scores = real
+
+
+def _counted(fn, *args, **kw):
+    """``fn``'s result, its printed lines and the kernels it launched (the
+    counts set to 0 just before it and read just after)."""
+    out = io.StringIO()
+    _zero_counts()
+    with contextlib.redirect_stdout(out):
+        res = fn(*args, **kw)
+    counts = {k: v["total"] for k, v in _read_counts().items()}
+    return res, out.getvalue().splitlines(), counts
+
+
+def _expect_launches(label, counts, want):
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+
+
+def phase_tracking_script(dev):
+    """scripts/measure_tracking_cuda.py's main at 20 frames with the
+    teleport at frame 10 (1024x512, 60,000 points): recovery at frame 10
+    and nowhere else, median t_err under 10 mm, no descent graph captured
+    or recaptured after frame 2, and one block histogram a full query (the
+    seed and the recovery; a tracked frame launches none); the block
+    histogram then held against its plain version on the seed's stage-2
+    call."""
+    from piccolo_tpu_torch import solver
+
+    mod = _measure_script("measure_tracking_cuda")
+    recaptures = solver.graph_stats()["recaptures"]
+    stage2 = {}
+    with _recording_stage2(stage2):
+        summary, lines, counts = _counted(mod.main, TRACK_SCRIPT_ARGS)
+    for ln in lines:
+        log(f"tracking script: {ln}")
+    graphs = json.loads(next(ln for ln in lines if ln.startswith("graphs: "))
+                        [len("graphs: "):])
+    if summary["recovered_at"] != [10] or summary["n_recoveries"] != 1:
+        raise AssertionError(f"tracking script recovered at "
+                             f"{summary['recovered_at']}, not [10]")
+    if not summary["median_t_err_mm"] < TRACK_SCRIPT_T_ERR_MM:
+        raise AssertionError(f"tracking script median t_err "
+                             f"{summary['median_t_err_mm']:.2f} mm")
+    if (graphs["captures"] != graphs["captures_by_frame_2"]
+            or solver.graph_stats()["recaptures"] != recaptures):
+        raise AssertionError(f"tracking script: a descent graph was "
+                             f"captured after frame 2: {graphs}")
+    n_full = len(summary["full_pipeline_s"])
+    _expect_launches("tracking script", counts, dict(
+        block_histogram=n_full, slab_group_sums_f32=0,
+        slab_group_sums_compact=0, slab_group_sums_q8=0,
+        masked_histogram_counts=0))
+    (_, _, nbins), (ids, mask) = next(iter(stage2.items()))
+    return [_recorded_bh_row(
+        "block_histogram.tracking_script",
+        f"measure_tracking_cuda {' '.join(TRACK_SCRIPT_ARGS)}: seed and "
+        "recovery queries", ids, mask, nbins, counts["block_histogram"],
+        n_full)]
+
+
+def phase_serving_script(dev, tmp):
+    """scripts/measure_serving_cuda.py's in-process modes on the card, its
+    executable cache in a directory of the run: sustained at 10 queries
+    (last5 median <= 1.5x first5; one f32 slab launch a plan group and one
+    block histogram a query, the warm query included), room-auto with the
+    probe off over the four rooms x 3 queries (12/12, each room's route
+    printed), track-streams at 2 streams x 4 frames with track_batch,
+    under descent_table float32 and the default auto (median t_err under
+    TRACK_STREAMS_T_ERR_M; the tracked frames launch no kernel); both
+    kernels then held against their plain versions on sustained's first
+    stage-1 and stage-2 calls."""
+    from piccolo_tpu_torch.kernels import _build
+
+    store = _build.library_store()
+    env = os.environ.get("PICCOLO_EXEC_CACHE")
+    os.environ["PICCOLO_EXEC_CACHE"] = os.path.join(tmp, "serving_exec")
+    try:
+        mod = _measure_script("measure_serving_cuda")  # reads it at load
+    finally:
+        if env is None:
+            del os.environ["PICCOLO_EXEC_CACHE"]
+        else:
+            os.environ["PICCOLO_EXEC_CACHE"] = env
+    stage1, stage2 = [], {}
+    try:
+        with _recording_stage1(stage1), _recording_stage2(stage2):
+            sus, lines, counts = _counted(mod.mode_sustained,
+                                          SERVING_SUSTAINED, dev)
+        for ln in lines:
+            log(f"serving script sustained: {ln}")
+        if not sus["last5_median_s"] <= SERVING_DRIFT * sus["first5_median_s"]:
+            raise AssertionError(f"serving script sustained drifted: {sus}")
+        n_q = SERVING_SUSTAINED + 1  # and the warm query at load
+        if (counts["block_histogram"] != n_q
+                or counts["slab_group_sums_f32"] == 0
+                or counts["slab_group_sums_f32"] % n_q
+                or counts["slab_group_sums_compact"]
+                or counts["slab_group_sums_q8"]):
+            raise AssertionError(f"serving script sustained: launches "
+                                 f"{counts} over {n_q} queries")
+        sus_counts = counts
+        auto, lines, counts = _counted(mod.mode_room_auto, dev, probe=False)
+        for ln in lines:
+            log(f"serving script room-auto: {ln}")
+        if (auto["correct"], auto["total"]) != (12, 12):
+            raise AssertionError(f"serving script room-auto: "
+                                 f"{auto['correct']}/{auto['total']}")
+        if not (counts["block_histogram"] > 0
+                and counts["slab_group_sums_f32"] > 0):
+            raise AssertionError(f"serving script room-auto: launches "
+                                 f"{counts}")
+        for table, bound in TRACK_STREAMS_T_ERR_M.items():
+            mod._CFG["descent_table"] = table
+            streams, lines, counts = _counted(
+                mod.mode_track_streams, 2, 4, True, 60000, 512, dev)
+            label = f"serving script track-streams, descent_table {table}"
+            for ln in lines:
+                log(f"{label}: {ln}")
+            if not streams["median_t_err_m"] < bound:
+                raise AssertionError(f"{label}: {streams}")
+            # the warm query and the streams' two seeds: full queries; the
+            # tracked frames launch none
+            _expect_launches(label, counts, dict(
+                block_histogram=3, masked_histogram_counts=0))
+    finally:
+        mod._CFG.pop("descent_table", None)
+        _build.use_store(store)
+    img, plan, rgb = stage1[0]
+    path = (f"measure_serving_cuda --mode sustained --queries "
+            f"{SERVING_SUSTAINED}")
+    rows = [_eval_f32_row("slab_group_sums_f32.serving_script", path, plan,
+                          img, rgb, sus_counts["slab_group_sums_f32"],
+                          SERVING_SUSTAINED + 1)]
+    (_, _, nbins), (ids, mask) = next(iter(stage2.items()))
+    rows.append(_recorded_bh_row("block_histogram.serving_script", path, ids,
+                                 mask, nbins, sus_counts["block_histogram"],
+                                 SERVING_SUSTAINED + 1))
+    return rows
+
+
+def phase_plan_lifecycle_script(dev, tmp):
+    """scripts/measure_plan_lifecycle_cuda.py's main at 60,000 points,
+    1024x512, 3 queries: --sync (the f32 plan resident from q0, one f32
+    slab launch a plan group a query) and the background default (the plan
+    resident by the last query, the f32 kernel launched on the queries
+    after it); the f32 kernel then held against its plain version on the
+    --sync run's first stage-1 call."""
+    mod = _measure_script("measure_plan_lifecycle_cuda")
+    stage1, runs = [], {}
+    for label, extra in (("sync", ["--sync"]), ("background", [])):
+        argv = ["--cache-dir", os.path.join(tmp, f"plans_{label}")]
+        calls = stage1 if label == "sync" else []
+        with _recording_stage1(calls):
+            out, lines, counts = _counted(mod.main,
+                                          argv + LIFECYCLE_ARGS + extra)
+        for ln in lines:
+            log(f"plan lifecycle script {label}: {ln}")
+        log(f"plan lifecycle script {label}: launches {counts}")
+        resident = out["plan_resident_after_query"]
+        groups = len(calls[0][1].fields) if calls else 0
+        on_plan = sum(r.startswith("stage 1 f32 slab plan")
+                      for r in out["routes"])
+        if label == "sync" and resident != [True] * 3:
+            raise AssertionError(f"--sync: plan resident {resident}")
+        if not resident[-1]:
+            raise AssertionError(f"{label}: no plan by the last query")
+        if not (on_plan and counts["slab_group_sums_f32"] > 0
+                and counts["slab_group_sums_compact"] == 0
+                and counts["slab_group_sums_q8"] == 0
+                and (label != "sync"
+                     or counts["slab_group_sums_f32"] == 3 * groups)):
+            raise AssertionError(f"{label}: launches {counts}, routes "
+                                 f"{out['routes']}")
+        runs[label] = (out, counts)
+    img, plan, rgb = stage1[0]
+    out, counts = runs["sync"]
+    return [_eval_f32_row(
+        "slab_group_sums_f32.plan_lifecycle",
+        f"measure_plan_lifecycle_cuda --sync {' '.join(LIFECYCLE_ARGS)}",
+        plan, img, rgb, counts["slab_group_sums_f32"], 3)]
+
+
+_SHARDED_WORKER = """
+import importlib.util, json, sys
+spec = importlib.util.spec_from_file_location("script", sys.argv[1])
+m = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(m)
+from piccolo_tpu_torch.kernels import slab_sampling as slab
+from piccolo_tpu_torch.kernels.block_histogram import block_histogram
+from piccolo_tpu_torch.kernels.histogram import masked_histogram_counts
+m.main(sys.argv[2:])
+fns = (slab.slab_group_sums_f32, slab.slab_group_sums_compact,
+       slab.slab_group_sums_q8, block_histogram, masked_histogram_counts)
+print("launches: " + json.dumps({f.__name__: f.launches for f in fns}))
+"""
+
+
+def phase_sharded_restart_script(dev, tmp):
+    """scripts/measure_sharded_coldstart_cuda.py twice, two fresh processes
+    on one executable-cache directory (60,000 points, 1024x512, the 1 x 1
+    mesh of one card): restart false, then true; every library of the
+    second a hit, none built; equal t_err; in each, one block histogram a
+    query (the mesh's stage 1 here is the gather engine), counted in the
+    process."""
+    exec_dir = os.path.join(tmp, "sharded_exec")
+    runs = []
+    for i in range(2):
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-c", _SHARDED_WORKER,
+             os.path.join(ROOT, "scripts",
+                          "measure_sharded_coldstart_cuda.py"),
+             "--exec-cache", exec_dir] + SHARDED_ARGS,
+            capture_output=True, text=True, timeout=300, env=_child_env(),
+            cwd=ROOT)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:] + proc.stderr[-4000:], flush=True)
+            raise AssertionError(f"sharded restart process {i} exited "
+                                 f"{proc.returncode}")
+        lines = proc.stdout.strip().splitlines()
+        counts = json.loads(lines[-1][len("launches: "):])
+        out = json.loads(lines[-2])
+        log(f"sharded restart process {i}: {json.dumps(out)}; launches "
+            f"{counts}; wall {time.time() - t0:.2f} s")
+        _expect_launches(f"sharded restart process {i}", counts, dict(
+            block_histogram=2, slab_group_sums_f32=0,
+            slab_group_sums_compact=0, slab_group_sums_q8=0))
+        runs.append(out)
+    first, second = runs
+    n_libs = 4 if dev.type == "cuda" else 1
+    if (first["restart"], second["restart"]) != (False, True):
+        raise AssertionError(f"sharded restart: restart "
+                             f"{first['restart']}, {second['restart']}")
+    if len(first["built"]) != n_libs or first["hits"]:
+        raise AssertionError(f"sharded restart: the first process found "
+                             f"{first['hits']}, built {first['built']}")
+    if not second["loaded"] or second["built"] or len(second["hits"]) != n_libs:
+        raise AssertionError(f"sharded restart: the second process found "
+                             f"{second['hits']}, built {second['built']}")
+    if first["t_err_m"] != second["t_err_m"]:
+        raise AssertionError(f"sharded restart: t_err {first['t_err_m']} "
+                             f"then {second['t_err_m']}")
+
+
 def timed(name, fn, *args):
     t0 = time.time()
     out = fn(*args)
@@ -4206,6 +4531,12 @@ def main():
         del o
         torch.cuda.empty_cache()
         rows += timed("eval_synth", phase_eval_synth, dev)
+        rows += timed("tracking script", phase_tracking_script, dev)
+        rows += timed("serving script", phase_serving_script, dev, tmp)
+        rows += timed("plan lifecycle script", phase_plan_lifecycle_script,
+                      dev, tmp)
+        timed("sharded restart script", phase_sharded_restart_script, dev,
+              tmp)
         fused = runs["fused"]["launches"]
         for row in omni_rows:
             kernel = row["name"].split(".")[0]

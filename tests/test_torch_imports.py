@@ -74,6 +74,54 @@ def test_tools_import_alone_without_jax(module):
     assert out[:2] == ["[]", "True"]
 
 
+MEASURE_SCRIPTS = ("measure_tracking_cuda", "measure_serving_cuda",
+           "measure_plan_lifecycle_cuda", "measure_sharded_coldstart_cuda")
+
+_SCRIPT_PROBE = """
+import importlib.util, sys
+spec = importlib.util.spec_from_file_location("script", sys.argv[1])
+m = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(m)
+print(sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "piccolo_tpu", "cv2")))
+print(callable(m.main))
+"""
+
+
+@pytest.mark.parametrize("script", MEASURE_SCRIPTS)
+def test_measure_scripts_import_no_jax_and_no_cv2(script):
+    """The port's measurement scripts in ``scripts/`` pull in no JAX,
+    nothing of the JAX package and no cv2."""
+    path = PKG.parent / "scripts" / f"{script}.py"
+    out = subprocess.run([sys.executable, "-c", _SCRIPT_PROBE, str(path)],
+                         check=True, capture_output=True, text=True,
+                         cwd=PKG.parent).stdout.split("\n")
+    assert out[:2] == ["[]", "True"]
+    src = path.read_text()
+    assert not re.search(r"^\s*(import|from)\s+(jax|cv2|piccolo_tpu)\b"
+                         r"(?!_torch)", src, re.M)
+
+
+@pytest.mark.parametrize("script,argv", [
+    ("measure_tracking_cuda", ["--frames", "2"]),
+    ("measure_serving_cuda", ["--mode", "sustained"]),
+    ("measure_plan_lifecycle_cuda", ["--cache-dir", "unused"]),
+    ("measure_sharded_coldstart_cuda", ["--exec-cache", "unused"]),
+])
+def test_measure_scripts_raise_without_a_card(monkeypatch, script, argv):
+    """Without CUDA and without ``--device cpu`` a script raises before it
+    does any work."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"measure_{script}", PKG.parent / "scripts" / f"{script}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mod.main(argv)
+
+
 def test_sources_never_import_jax_or_the_reference_package():
     pat = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+piccolo_tpu\b(?!_torch)"
                      r"|from\s+piccolo_tpu\b(?!_torch))", re.M)
