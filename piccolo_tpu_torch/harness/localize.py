@@ -73,7 +73,7 @@ from ..ops.rotation import rot_from_ypr
 from ..pipeline import localize_query
 from ..solver import descend, descent_note
 from ..utils import exec_cache
-from ..utils.profiling import enable_nan_debug, maybe_trace
+from ..utils.profiling import count, enable_nan_debug, maybe_trace, span
 from .imaging import imread_rgb, resize
 from .metrics import (
     OMNISCENES_R_THRESH_DEG,
@@ -216,17 +216,20 @@ def prepare_stanford_images(cfg, orig: np.ndarray, room: Dict):
     main_dh = cfg_get(cfg, "main_downsample_h", 1)
     main_dw = cfg_get(cfg, "main_downsample_w", 1)
     H0, W0 = orig.shape[:2]
-    img_init = resize(orig, (W0 // init_dw, H0 // init_dh)).astype(np.float32) / 255.0
+    with span("service.prep.resize"):
+        img_init = resize(orig, (W0 // init_dw, H0 // init_dh)).astype(np.float32) / 255.0
     rgb_used = room["rgb"]
     if cfg_get(cfg, "sharpen_color", False):
-        img_init, rgb_mod = color_mod(
-            img_init, room["rgb_np"], cfg_get(cfg, "num_bins", 256)
-        )
-        rgb_used = _pad_rgb(rgb_mod, int(room["mask"].shape[0]),
-                            room["device"])
-    rt0 = time.time()
-    img_main = resize(orig, (W0 // main_dw, H0 // main_dh)).astype(np.float32) / 255.0
-    prep_timed = time.time() - rt0
+        with span("service.prep.color"):
+            img_init, rgb_mod = color_mod(
+                img_init, room["rgb_np"], cfg_get(cfg, "num_bins", 256)
+            )
+            rgb_used = _pad_rgb(rgb_mod, int(room["mask"].shape[0]),
+                                room["device"])
+    with span("service.prep.resize"):
+        rt0 = time.time()
+        img_main = resize(orig, (W0 // main_dw, H0 // main_dh)).astype(np.float32) / 255.0
+        prep_timed = time.time() - rt0
     return img_init, img_main, rgb_used, prep_timed
 
 
@@ -279,25 +282,27 @@ def finish_omniscenes_images(cfg, orig: np.ndarray, room: Dict):
     stanford", localize.py:349-350) and the main resize, which the
     reference's per-query timer covers."""
     rgb_used = room["rgb"]
-    mod_img = orig.astype(np.float32) / 255.0
-    if cfg_get(cfg, "match_color", False):
-        mod_img = color_match(mod_img, room["rgb_np"])
-        orig = (mod_img * 255).astype(np.uint8)
-    if cfg_get(cfg, "sharpen_color", False):
-        mod_img, rgb_mod = color_mod(mod_img, room["rgb_np"],
-                                     cfg_get(cfg, "num_bins", 256))
-        orig = (mod_img * 255).astype(np.uint8)
-        rgb_used = _pad_rgb(rgb_mod, int(room["mask"].shape[0]),
-                            room["device"])
+    with span("service.prep.color"):
+        mod_img = orig.astype(np.float32) / 255.0
+        if cfg_get(cfg, "match_color", False):
+            mod_img = color_match(mod_img, room["rgb_np"])
+            orig = (mod_img * 255).astype(np.uint8)
+        if cfg_get(cfg, "sharpen_color", False):
+            mod_img, rgb_mod = color_mod(mod_img, room["rgb_np"],
+                                         cfg_get(cfg, "num_bins", 256))
+            orig = (mod_img * 255).astype(np.uint8)
+            rgb_used = _pad_rgb(rgb_mod, int(room["mask"].shape[0]),
+                                room["device"])
     init_dh = max(cfg_get(cfg, "init_downsample_h", 1) // 2, 1)
     init_dw = max(cfg_get(cfg, "init_downsample_w", 1) // 2, 1)
     main_dh = cfg_get(cfg, "main_downsample_h", 1)
     main_dw = cfg_get(cfg, "main_downsample_w", 1)
     H0, W0 = orig.shape[:2]
-    img_init = resize(orig, (W0 // init_dw, H0 // init_dh)).astype(np.float32) / 255.0
-    rt0 = time.time()
-    img_main = resize(orig, (W0 // main_dw, H0 // main_dh)).astype(np.float32) / 255.0
-    prep_timed = time.time() - rt0
+    with span("service.prep.resize"):
+        img_init = resize(orig, (W0 // init_dw, H0 // init_dh)).astype(np.float32) / 255.0
+        rt0 = time.time()
+        img_main = resize(orig, (W0 // main_dw, H0 // main_dh)).astype(np.float32) / 255.0
+        prep_timed = time.time() - rt0
     return orig, img_init, img_main, rgb_used, prep_timed
 
 
@@ -1019,7 +1024,9 @@ def _run_fused(img_init, img_main, cache, rgb_used, cfg, init_dict, grids,
     """One query through ``localize_query`` on the room's device, or
     through ``parallel.localize_query_sharded`` over ``mesh`` (the room on
     its lead device; ``descent_multires_*`` is warned about and ignored
-    there); returns (result or (result, traj), route).
+    there); returns (result or (result, traj), route).  Counts the real
+    pairs stage 1 scores (``stage1.pairs``) and those a slab plan scores
+    (``stage1.pairs_planned``) while tracing (``utils.profiling.count``).
 
     ``probe=True`` is serving's per-room ``room = "auto"`` probe: a
     truncated query whose winner loss only ranks rooms.  Stages 1 and 2 as
@@ -1074,6 +1081,9 @@ def _run_fused(img_init, img_main, cache, rgb_used, cfg, init_dict, grids,
             seam_wrap=bool(cfg_get(cfg, "seam_wrap", False)),
             descent_prune=prune, **kw,
         )
+        # a sharded plan is whole (a partial one stays on the gather engine)
+        count("stage1.pairs", n_real_pairs)
+        count("stage1.pairs_planned", 0 if plan is None else n_real_pairs)
         return out, _plan_route(plan, hist_plan, n_real_pairs,
                                 kw["criterion"], mesh)
     plan = _maybe_slab_plan(cfg, cache, grids, img_init, sync=sync_plans)
@@ -1097,6 +1107,9 @@ def _run_fused(img_init, img_main, cache, rgb_used, cfg, init_dict, grids,
         trajectory=want_traj, descent_prune=prune, descent_multires=multires,
         device=cache["device"], **kw,
     )
+    count("stage1.pairs", n_real_pairs)
+    count("stage1.pairs_planned",
+          0 if plan is None else min(plan.n_pairs, n_real_pairs))
     return out, _plan_route(plan, hist_plan, n_real_pairs, criterion)
 
 

@@ -28,7 +28,6 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..device import as_tensor
 from ..init.refine import (
@@ -64,6 +63,7 @@ from ..ops.rotation import rot_from_ypr
 from ..ops.sampling import pack_bilinear_blocks
 from ..pipeline import LocalizeResult
 from ..solver import _check_prune
+from ..utils.profiling import span
 from .sharding import (
     Mesh,
     ShardedCloud,
@@ -454,7 +454,7 @@ def localize_query_sharded(
     n_cand = mesh.shape["cand"]
 
     # ---- stage 1: the loss table, pairs split over the cand groups
-    with record_function("localize.stage1_loss_table"):
+    with span("localize.stage1_loss_table"):
         pair_t, pair_r = make_pairs(trans_grid, rot_grid)
         pair_valid = torch.repeat_interleave(trans_valid, R)
         if plan is not None:
@@ -482,7 +482,7 @@ def localize_query_sharded(
         t2, r2, final_valid = t1, r1, sel_valid
     else:
         # ---- stage 2: the survivors split over the cand groups
-        with record_function("localize.stage2_hist_trim"):
+        with span("localize.stage2_hist_trim"):
             mult = n_cand * hist_chunk
             if hist_plan is not None:
                 idx = _pad_clone_rows(idx1.clamp_max(hist_plan.n_pairs - 1),
@@ -505,7 +505,7 @@ def localize_query_sharded(
     k2 = t2.shape[0]
 
     # ---- stage 3: the descent over the mesh
-    with record_function("localize.stage3_descent"):
+    with span("localize.stage3_descent"):
         prune = _check_prune(descent_prune, num_iter, k2, False)
         t2p, r2p = _pad_clone_rows(t2, n_cand), _pad_clone_rows(r2, n_cand)
         v2p = torch.cat([final_valid, torch.zeros(

@@ -11,9 +11,10 @@ Selections use ``torch.sort(stable=True)``: ``lax.top_k`` keeps the lower
 index first among ties, ``torch.topk`` promises no order, and ties are
 common here (every padding pair scores +inf).
 
-Each stage runs inside a ``torch.profiler`` span (``localize.stage1_*``,
-``localize.stage2_*``, ``localize.stage3_*``) so a profile of a query
-charges device time to its stage; ``chip_smoke.py`` reads them.
+Each stage runs inside a span (``utils.profiling.span``:
+``localize.stage1_*``, ``localize.stage2_*``, ``localize.stage3_*``) so a
+profile of a query charges device time to its stage; ``chip_smoke.py`` and
+the benchmark's traced runs read them.
 """
 
 from __future__ import annotations
@@ -23,7 +24,6 @@ import math
 from typing import Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from .device import as_tensor, resolve_device
 from .init.refine import (
@@ -38,6 +38,7 @@ from .kernels.slab_sampling import GridPlan, make_pairs, slab_pair_scores
 from .ops.rotation import rot_from_ypr
 from .ops.sampling import resolve_descent_table
 from .solver import descend_starts
+from .utils.profiling import span
 
 __all__ = ["LocalizeResult", "localize_query", "localize_query_batch"]
 
@@ -182,7 +183,7 @@ def localize_query(
         grid_chunk = gather_chunk(xyz.shape[0], dev)
 
     # ---- stage 1: loss table over the candidate grid
-    with record_function("localize.stage1_loss_table"):
+    with span("localize.stage1_loss_table"):
         pair_t, pair_r = make_pairs(trans_grid, rot_grid)
         pair_valid = torch.repeat_interleave(trans_valid, R)
         if plan is not None:
@@ -215,7 +216,7 @@ def localize_query(
         t2, r2, final_valid = t1, r1, sel_valid
     else:
         # ---- stage 2: histogram trim
-        with record_function("localize.stage2_hist_trim"):
+        with span("localize.stage2_hist_trim"):
             if hist_plan is not None:
                 sel = hist_plan.planes[idx1.clamp_max(hist_plan.n_pairs - 1)]
                 hs = hist_scores_from_planes(img_init, sel, num_split_h,
@@ -234,7 +235,7 @@ def localize_query(
     r2 = torch.where(final_valid[:, None], r2, r2[0])
 
     # ---- stage 3: multi-start descent
-    with record_function("localize.stage3_descent"):
+    with span("localize.stage3_descent"):
         params, losses, _, traj = descend_starts(
             img_main, xyz, rgb, t2, r2, lo, hi, pm, num_iter, lr, patience,
             factor, table_dtype, seam_wrap, trajectory, prune=descent_prune,

@@ -26,6 +26,12 @@ batched descent.  ``room="auto"`` ranks the resident rooms by full queries,
 by a probe per room, or (``room_auto_probe = "batched"``) by one probe over
 every room (``probe.py``).
 
+While a ``torch.profiler`` session records, each request is a
+``service.request`` span with its own id, and its prep, compute-lock wait,
+solve and result copy (and a tracked frame's queue wait and batch) are
+spans under it (``utils.profiling``); the reply's ``route`` names the
+stages' route and ``/healthz`` the plan bytes each card holds.
+
 The service runs on the card (``device="cuda"``, the default) unless the
 caller passes ``device="cpu"``.  Two config keys use more devices, and
 exclude each other: ``n_devices`` shards each query over a ('cand',
@@ -42,6 +48,7 @@ from __future__ import annotations
 import argparse
 import base64
 import contextlib
+import contextvars
 import json
 import threading
 import time
@@ -66,6 +73,7 @@ from .harness.localize import (
     prepare_omniscenes_images,
     prepare_stanford_images,
 )
+from .utils import profiling
 
 __all__ = ["LocalizeService", "ServiceOverloaded", "serve_forever", "main"]
 
@@ -285,8 +293,9 @@ class LocalizeService:
         its ``loss``, ``winner``, the candidates' ``cand_loss``,
         ``time_s`` (the reference's CSV timer: main resize + solve),
         ``total_s`` (in-service latency, all prep and the result copy
-        included), ``room`` and ``device_index`` (the query device that
-        answered).
+        included), ``room``, ``device_index`` (the query device that
+        answered) and, for a full query, ``route`` (the stages' route, as
+        the CLI prints it per query).
 
         ``prev_pose`` (``{"t": [x, y, z], "ypr": [yaw, pitch, roll]}``, the
         fields a previous reply gives) switches the request to tracking: one
@@ -329,41 +338,63 @@ class LocalizeService:
 
     def _prepare(self, img: np.ndarray, cache: Dict):
         """The harness's own per-query prep for this service's dataset."""
-        if "mni" in cfg_get(self.cfg, "dataset", "Stanford2D-3D-S"):
-            _, img_init, img_main, rgb_used, prep_timed = (
-                prepare_omniscenes_images(self.cfg, img, cache))
-        else:
-            img_init, img_main, rgb_used, prep_timed = (
-                prepare_stanford_images(self.cfg, img, cache))
+        with profiling.span("service.prep"):
+            if "mni" in cfg_get(self.cfg, "dataset", "Stanford2D-3D-S"):
+                _, img_init, img_main, rgb_used, prep_timed = (
+                    prepare_omniscenes_images(self.cfg, img, cache))
+            else:
+                img_init, img_main, rgb_used, prep_timed = (
+                    prepare_stanford_images(self.cfg, img, cache))
         return img_init, img_main, rgb_used, prep_timed
+
+    @contextlib.contextmanager
+    def _holding(self, device_index: int):
+        """The device's compute lock, its wait a ``service.lock_wait``
+        span."""
+        lock = self._compute_locks[device_index]
+        with profiling.span("service.lock_wait"):
+            lock.acquire()
+        try:
+            yield
+        finally:
+            lock.release()
 
     _PLAN_KEY_HEADS = ("slab_plan", "hist_plan", "slab_plan_sharded",
                        "hist_plan_sharded")
 
-    def _resident_plan_bytes(self, exclude_cache, device_index: int) -> int:
-        """Device memory already held by OTHER resident rooms' plans on the
-        busiest card: a plan on one device counts on that device, a sharded
-        plan counts what it holds on each card of its mesh (``card_bytes``),
-        since admission checks a sharded plan against the cap card by
-        card."""
+    def plan_bytes(self, exclude_cache=None,
+                   device_index: Optional[int] = None) -> Dict[str, int]:
+        """Device memory the resident rooms' plans hold, by card: a plan on
+        one device counts on that device, a sharded plan counts what it
+        holds on each card of its mesh (``card_bytes``).  Every replica by
+        default; ``device_index`` and ``exclude_cache`` narrow it to one
+        replica's rooms other than one."""
         with self._rooms_lock:
             rooms = list(self._rooms.values())
         held: Dict[str, int] = {}
         for caches in rooms:
-            c = caches[device_index]
-            if c is exclude_cache:
-                continue
-            for k, v in list(c.items()):
-                if not (isinstance(k, tuple) and k
-                        and k[0] in self._PLAN_KEY_HEADS):
+            for c in (caches if device_index is None
+                      else [caches[device_index]]):
+                if c is exclude_cache:
                     continue
-                by_card = getattr(v, "card_bytes", None)
-                if by_card is None:
-                    by_card = {str(c["device"]):
-                               int(getattr(v, "nbytes", 0) or 0)}
-                for card, n in by_card.items():
-                    held[card] = held.get(card, 0) + int(n)
-        return max(held.values(), default=0)
+                for k, v in list(c.items()):
+                    if not (isinstance(k, tuple) and k
+                            and k[0] in self._PLAN_KEY_HEADS):
+                        continue
+                    by_card = getattr(v, "card_bytes", None)
+                    if by_card is None:
+                        by_card = {str(c["device"]):
+                                   int(getattr(v, "nbytes", 0) or 0)}
+                    for card, n in by_card.items():
+                        held[card] = held.get(card, 0) + int(n)
+        return held
+
+    def _resident_plan_bytes(self, exclude_cache, device_index: int) -> int:
+        """Device memory already held by OTHER resident rooms' plans on the
+        busiest card (:meth:`plan_bytes`), since admission checks a sharded
+        plan against the cap card by card."""
+        return max(self.plan_bytes(exclude_cache, device_index).values(),
+                   default=0)
 
     def _budget_cfg(self, cache, device_index: int):
         """Per-call cfg whose plan caps subtract the memory other resident
@@ -395,25 +426,27 @@ class LocalizeService:
 
     def _compute_room(self, prep, cache, device_index: int) -> Dict:
         """One full fused query against a room: the device work and ONE
-        packed copy of the result to the host, under the compute lock."""
+        packed copy of the result to the host, under the compute lock; the
+        reply carries the stages' ``route``."""
         img_init, img_main, rgb_used, prep_timed = prep
-        with self._compute_locks[device_index]:
+        with self._holding(device_index), profiling.span("service.solve"):
             t0 = time.time()
             # plans build in line: warming exists to take this cost at load
-            res, _ = _run_fused(
+            res, route = _run_fused(
                 img_init, img_main, cache, rgb_used,
                 self._budget_cfg(cache, device_index), self.init_dict,
                 cache["grids"], self.mesh, sync_plans=True,
             )
-            packed = torch.cat([
-                res.t, res.rot.reshape(-1), res.loss.reshape(1),
-                res.winner.reshape(1).to(torch.float32), res.cand_loss,
-            ]).cpu().numpy()
+            with profiling.span("service.fetch"):
+                packed = torch.cat([
+                    res.t, res.rot.reshape(-1), res.loss.reshape(1),
+                    res.winner.reshape(1).to(torch.float32), res.cand_loss,
+                ]).cpu().numpy()
             elapsed = time.time() - t0 + prep_timed
         return dict(
             t=packed[:3], rot=packed[3:12].reshape(3, 3),
             loss=float(packed[12]), winner=int(packed[13]),
-            cand_loss=packed[14:], time_s=elapsed,
+            cand_loss=packed[14:], time_s=elapsed, route=route,
         )
 
     @staticmethod
@@ -444,10 +477,12 @@ class LocalizeService:
 
         _, img_main, rgb_used, prep_timed = prep
         t_prev, ypr_prev = self._parse_prev_pose(prev_pose)
-        with self._compute_locks[device_index]:
+        with self._holding(device_index), profiling.span("service.solve"):
             t0 = time.time()
+            with profiling.span("track.upload"):
+                img = as_tensor(img_main, cache["device"], torch.float32)
             t, ypr, rot, loss = track_step_fetched(
-                img_main, cache["xyz"], rgb_used, t_prev, ypr_prev,
+                img, cache["xyz"], rgb_used, t_prev, ypr_prev,
                 cache["lo"], cache["hi"], cache["mask"],
                 **self._track_kw(cache))
             elapsed = time.time() - t0 + prep_timed
@@ -476,12 +511,14 @@ class LocalizeService:
         entry = dict(img=img_main, t=t_prev, ypr=ypr_prev,
                      prep_timed=prep_timed,
                      key=(id(cache), tuple(img_main.shape)),
-                     event=threading.Event(), out=None)
+                     event=threading.Event(), out=None,
+                     requests=profiling.current_requests())
         qlock = self._track_qlocks[device_index]
         queue = self._track_queues[device_index]
         with qlock:
+            entry["queued_ns"] = time.time_ns()
             queue.append(entry)
-        with self._compute_locks[device_index]:
+        with self._holding(device_index):
             if not entry["event"].is_set():
                 with qlock:
                     # drain by identity: entries hold arrays, on which
@@ -508,30 +545,44 @@ class LocalizeService:
     def _run_track_batch(self, batch, cache) -> None:
         """Run one drained batch of tracked requests (compute lock held)
         and hand each request its answer, with ``"batched": K`` when
-        K > 1."""
+        K > 1.  While tracing, the batch is a ``track.batch`` span over its
+        requests' ids, and each request's wait from its queueing to the
+        batch's start a ``track.queue_wait`` record."""
         from .tracking import track_step_fetched, track_steps_batched
 
+        bucket = 1
+        while bucket < len(batch):
+            bucket *= 2
         try:
             t0 = time.time()
-            kw = self._track_kw(cache)
-            if len(batch) == 1:
-                e = batch[0]
-                results = [track_step_fetched(
-                    e["img"], cache["xyz"], cache["rgb"], e["t"], e["ypr"],
-                    cache["lo"], cache["hi"], cache["mask"], **kw)]
-            else:
-                bucket = 2
-                while bucket < len(batch):
-                    bucket *= 2
-                rows = batch + [batch[-1]] * (bucket - len(batch))
-                imgs = torch.stack([as_tensor(e["img"], cache["device"],
-                                              torch.float32) for e in rows])
-                results = track_steps_batched(
-                    imgs, cache["xyz"], cache["rgb"],
-                    np.stack([e["t"] for e in rows]),
-                    np.stack([e["ypr"] for e in rows]),
-                    cache["lo"], cache["hi"], cache["mask"], **kw,
-                )[: len(batch)]
+            with profiling.span(
+                    "track.batch", k=len(batch), bucket=bucket,
+                    requests=tuple(r for e in batch for r in e["requests"])):
+                start = time.time_ns()
+                for e in batch:
+                    profiling.record("track.queue_wait", e["queued_ns"],
+                                     start, requests=e["requests"])
+                kw = self._track_kw(cache)
+                dev = cache["device"]
+                if len(batch) == 1:
+                    e = batch[0]
+                    with profiling.span("track.upload"):
+                        img = as_tensor(e["img"], dev, torch.float32)
+                    results = [track_step_fetched(
+                        img, cache["xyz"], cache["rgb"], e["t"], e["ypr"],
+                        cache["lo"], cache["hi"], cache["mask"], **kw)]
+                else:
+                    rows = batch + [batch[-1]] * (bucket - len(batch))
+                    with profiling.span("track.upload"):
+                        imgs = torch.stack([as_tensor(e["img"], dev,
+                                                      torch.float32)
+                                            for e in rows])
+                    results = track_steps_batched(
+                        imgs, cache["xyz"], cache["rgb"],
+                        np.stack([e["t"] for e in rows]),
+                        np.stack([e["ypr"] for e in rows]),
+                        cache["lo"], cache["hi"], cache["mask"], **kw,
+                    )[: len(batch)]
             elapsed = time.time() - t0
             extra = {"batched": len(batch)} if len(batch) > 1 else {}
             for e, (t, ypr, rot, loss) in zip(batch, results):
@@ -552,7 +603,7 @@ class LocalizeService:
         a short pruned descent at the init resolution
         (``harness.localize._run_fused(probe=True)``); the winner loss."""
         img_init, img_main, rgb_used, _ = prep
-        with self._compute_locks[device_index]:
+        with self._holding(device_index):
             res, _ = _run_fused(
                 img_init, img_main, cache, rgb_used,
                 self._budget_cfg(cache, device_index), self.init_dict,
@@ -647,7 +698,7 @@ class LocalizeService:
         if batched:
             st = self._probe_state_batched(device_index)
             prep0 = next_prep[0]
-            with self._compute_locks[device_index]:
+            with self._holding(device_index):
                 losses = st.losses(prep0[0], **self._probe_kwargs())
             # the images are room-independent here, but rgb_used must be
             # each room's own colours (identity with cache["rgb"] admits the
@@ -664,8 +715,9 @@ class LocalizeService:
                 prep = preps[name] = next_prep[0]
                 th = None
                 if i + 1 < len(candidates):
-                    th = threading.Thread(target=_prep_into,
-                                          args=(candidates[i + 1][1],))
+                    th = threading.Thread(
+                        target=contextvars.copy_context().run,
+                        args=(_prep_into, candidates[i + 1][1]))
                     th.start()
                 scores[name] = self._probe_room(prep, cache, device_index)
                 if th is not None:
@@ -698,8 +750,9 @@ class LocalizeService:
             if prep is None:
                 prep = preps[name] = next_prep[0]
                 if i + 1 < len(order):
-                    th = threading.Thread(target=_prep_into,
-                                          args=(order[i + 1][1],))
+                    th = threading.Thread(
+                        target=contextvars.copy_context().run,
+                        args=(_prep_into, order[i + 1][1]))
                     th.start()
             fields = self._compute_room(prep, cache, device_index)
             if th is not None:
@@ -735,8 +788,11 @@ class LocalizeService:
         # which takes the current device (streams, events, a bare "cuda")
         # lands on the replica's card and not on cuda:0
         dev = self._devices[device_index]
-        with (torch.cuda.device(dev) if dev.type == "cuda"
-              else contextlib.nullcontext()):
+        with profiling.request(
+                "service.request", device=device_index,
+                kind="query" if prev_pose is None else "tracked"), (
+                torch.cuda.device(dev) if dev.type == "cuda"
+                else contextlib.nullcontext()):
             return self._localize_on(img, room, device_index, t_start,
                                      prev_pose, recover_above)
 
@@ -853,7 +909,8 @@ def serve_forever(service: LocalizeService, host: str = "127.0.0.1",
                   data_root: Optional[str] = None):
     """Blocking HTTP server over ``service`` (stdlib, JSON API).
 
-    Endpoints: ``GET /healthz``; ``POST /localize`` with
+    Endpoints: ``GET /healthz`` (with the plan bytes each card holds);
+    ``POST /localize`` with
     ``{"image_path" | "image_b64": ..., "room", "prev_pose",
     "recover_above"}``; ``POST /room`` with ``{"pcd_path": ...}``.  Errors
     answer 400 (bad request), 404 (unknown path), 503 with Retry-After
@@ -887,7 +944,8 @@ def serve_forever(service: LocalizeService, host: str = "127.0.0.1",
                         "devices": service.devices,
                         "busy_devices": service.busy_devices,
                         "pending": service.pending,
-                        "max_pending": service.max_pending})
+                        "max_pending": service.max_pending,
+                        "plan_bytes": service.plan_bytes()})
                 else:
                     self._reply(404, {"error": "unknown path"})
             except Exception as exc:  # health probes see no tracebacks
@@ -917,6 +975,8 @@ def serve_forever(service: LocalizeService, host: str = "127.0.0.1",
                         "room": out["room"],
                         "device_index": out["device_index"],
                     }
+                    if "route" in out:
+                        reply["route"] = out["route"]
                     if out.get("tracked"):
                         reply["tracked"] = True
                         reply["recovered"] = bool(out.get("recovered"))

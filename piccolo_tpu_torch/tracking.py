@@ -16,7 +16,10 @@ the iterations.  An opt-in extension with no reference counterpart:
   * :func:`track_steps_batched`: K streams' frames of one room as one
     K-start descent (one graph on the card), one packed (K, 16) copy.
 
-Results come to the host as ONE packed 16-float copy (t, ypr, rot, loss).
+Results come to the host as ONE packed 16-float copy (t, ypr, rot, loss),
+inside a ``service.fetch`` span; each entry point's table build and descent
+run inside ``localize.stage3_descent`` (``utils.profiling.span``), the span
+a full query's descent opens.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 ``exec_cache_dir`` loads the process's kernel libraries and JPEG codec from
 the executable cache (``utils.exec_cache``) before the first step.
@@ -46,6 +49,7 @@ from .solver import (
     descend_packed,
 )
 from .utils import exec_cache
+from .utils.profiling import span
 
 __all__ = [
     "TrackResult",
@@ -109,22 +113,24 @@ def track_step(img, xyz, rgb, prev_t, prev_ypr, lo, hi, point_mask=None, *,
     may be far apart.
     """
     _use_exec_cache(exec_cache_dir, device)
-    return descend(
-        img, xyz, rgb,
-        np.asarray(prev_t, np.float32).reshape(1, 3),
-        np.asarray(prev_ypr, np.float32).reshape(1, 3),
-        lo, hi, point_mask,
-        num_iter=num_iter, lr=lr, patience=patience, factor=factor,
-        masked=point_mask is not None, table_dtype=table_dtype, wrap=wrap,
-        device=device,
-    )
+    with span("localize.stage3_descent"):
+        return descend(
+            img, xyz, rgb,
+            np.asarray(prev_t, np.float32).reshape(1, 3),
+            np.asarray(prev_ypr, np.float32).reshape(1, 3),
+            lo, hi, point_mask,
+            num_iter=num_iter, lr=lr, patience=patience, factor=factor,
+            masked=point_mask is not None, table_dtype=table_dtype,
+            wrap=wrap, device=device,
+        )
 
 
 def _unpack_fetched(res: SolveResult):
     """A single-start result through ONE copy to the host: ``(t (3,),
     ypr (3,), rot (3, 3), loss)``."""
-    flat = torch.cat([res.t[0], res.ypr[0], res.rot[0].reshape(-1),
-                      res.loss[0:1]]).cpu().numpy()
+    with span("service.fetch"):
+        flat = torch.cat([res.t[0], res.ypr[0], res.rot[0].reshape(-1),
+                          res.loss[0:1]]).cpu().numpy()
     return flat[0:3], flat[3:6], flat[6:15].reshape(3, 3), float(flat[15])
 
 
@@ -183,15 +189,17 @@ def track_step_prepped_fetched(img_u8, xyz, rgb, prev_t, prev_ypr, lo, hi,
     _use_exec_cache(exec_cache_dir, dev)
     img, rgb = _prep_frame(img_u8, cdf, sharpen,
                            as_tensor(rgb, dev, torch.float32), dev)
-    return _unpack_fetched(descend(
-        img, xyz, rgb,
-        np.asarray(prev_t, np.float32).reshape(1, 3),
-        np.asarray(prev_ypr, np.float32).reshape(1, 3),
-        lo, hi, point_mask,
-        num_iter=num_iter, lr=lr, patience=patience, factor=factor,
-        masked=point_mask is not None, table_dtype=table_dtype, wrap=wrap,
-        device=dev,
-    ))
+    with span("localize.stage3_descent"):
+        res = descend(
+            img, xyz, rgb,
+            np.asarray(prev_t, np.float32).reshape(1, 3),
+            np.asarray(prev_ypr, np.float32).reshape(1, 3),
+            lo, hi, point_mask,
+            num_iter=num_iter, lr=lr, patience=patience, factor=factor,
+            masked=point_mask is not None, table_dtype=table_dtype,
+            wrap=wrap, device=dev,
+        )
+    return _unpack_fetched(res)
 
 
 def track_steps_batched(imgs, xyz, rgb, prev_ts, prev_yprs, lo, hi,
@@ -225,25 +233,28 @@ def track_steps_batched(imgs, xyz, rgb, prev_ts, prev_yprs, lo, hi,
     imgs = as_tensor(imgs, dev, torch.float32)
     K, H, W, _ = imgs.shape
     dtype = resolve_descent_table(table_dtype, H, W, dev)
-    blocks = torch.cat([_packed_table(img, dtype, wrap) for img in imgs])
-    offset = None
-    if K > 1:
-        offset = (torch.arange(K, dtype=torch.int32, device=dev)
-                  * ((H + 1) * (W + 1)))[:, None]
-    x = StepInputs(blocks, as_tensor(xyz, dev, torch.float32),
-                   as_tensor(rgb, dev, torch.float32),
-                   None if point_mask is None
-                   else as_tensor(point_mask, dev, torch.bool),
-                   as_tensor(lo, dev, torch.float32),
-                   as_tensor(hi, dev, torch.float32), offset)
-    s = StepStatics(H, W, int(patience), float(factor), bool(wrap))
-    params, losses, _, _ = descend_packed(
-        x, s, as_tensor(np.asarray(prev_ts, np.float32).reshape(-1, 3), dev),
-        as_tensor(np.asarray(prev_yprs, np.float32).reshape(-1, 3), dev),
-        num_iter, lr, _eager=_eager)
-    ypr = params.ypr()
-    flat = torch.cat([params.t, ypr, pose_rotation(params).reshape(K, 9),
-                      losses[:, None]], 1).cpu().numpy()
+    with span("localize.stage3_descent"):
+        blocks = torch.cat([_packed_table(img, dtype, wrap) for img in imgs])
+        offset = None
+        if K > 1:
+            offset = (torch.arange(K, dtype=torch.int32, device=dev)
+                      * ((H + 1) * (W + 1)))[:, None]
+        x = StepInputs(blocks, as_tensor(xyz, dev, torch.float32),
+                       as_tensor(rgb, dev, torch.float32),
+                       None if point_mask is None
+                       else as_tensor(point_mask, dev, torch.bool),
+                       as_tensor(lo, dev, torch.float32),
+                       as_tensor(hi, dev, torch.float32), offset)
+        s = StepStatics(H, W, int(patience), float(factor), bool(wrap))
+        params, losses, _, _ = descend_packed(
+            x, s,
+            as_tensor(np.asarray(prev_ts, np.float32).reshape(-1, 3), dev),
+            as_tensor(np.asarray(prev_yprs, np.float32).reshape(-1, 3), dev),
+            num_iter, lr, _eager=_eager)
+    with span("service.fetch"):
+        ypr = params.ypr()
+        flat = torch.cat([params.t, ypr, pose_rotation(params).reshape(K, 9),
+                          losses[:, None]], 1).cpu().numpy()
     return [(f[0:3], f[3:6], f[6:15].reshape(3, 3), float(f[15]))
             for f in flat]
 

@@ -1,11 +1,10 @@
-"""Utilities: profiling, timing, debug switches (port of
+"""Utilities: profiling, tracing, debug switches (port of
 piccolo_tpu.utils)."""
 
 from .profiling import (
-    Timer,
     enable_compilation_cache,
     enable_nan_debug,
     maybe_trace,
 )
 
-__all__ = ["Timer", "enable_compilation_cache", "enable_nan_debug", "maybe_trace"]
+__all__ = ["enable_compilation_cache", "enable_nan_debug", "maybe_trace"]

@@ -16,6 +16,9 @@ on the CPU.
     package's does.
   * Tracked requests (``prev_pose``), ``recover_above``, and ``track_batch``
     draining concurrent tracked requests into one batch.
+  * Under a profiler session: a served query's spans under one request id
+    and its ``route``, a batch's spans over both of its requests' ids, and
+    the stage-1 pair counters with a whole plan and with plans off.
   * ``query_devices = 2`` (two logical CPU replicas) answers requests in
     turn, each bit-equal to the single-device service; ``n_devices = 4``
     answers bit-equal to ``_run_fused`` over the same mesh and within 1e-3
@@ -26,7 +29,9 @@ on the CPU.
 import base64
 import json
 import threading
+import time
 import warnings
+from collections import Counter
 import urllib.error
 import urllib.request
 
@@ -37,6 +42,7 @@ import torch
 from piccolo_tpu_torch.harness.imaging import jpeg_encode, png_encode
 from piccolo_tpu_torch.serve import LocalizeService, serve_forever
 from piccolo_tpu_torch.testing import make_room, render_at
+from piccolo_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -161,7 +167,7 @@ def test_http_roundtrip(scene, tmp_path):
             assert json.loads(r.read()) == {
                 "ok": True, "room": "box", "rooms": ["box"], "busy": False,
                 "devices": 1, "busy_devices": 0, "pending": 0,
-                "max_pending": 1}
+                "max_pending": 1, "plan_bytes": {}}
         by_path = _post(base, "/localize", {"image_path": img_path})
         png = _post(base, "/localize", {
             "image_b64": base64.b64encode(png_encode(img)).decode()})
@@ -170,6 +176,7 @@ def test_http_roundtrip(scene, tmp_path):
         for out in (by_path, png):  # lossless: the direct call's answer
             np.testing.assert_array_equal(np.float32(out["t"]), want["t"])
             assert out["loss"] == want["loss"] and out["total_s"] > 0
+            assert out["route"] == want["route"]
         assert np.linalg.norm(np.array(jpg["t"]) - gt_t) < 0.2
         assert np.array(jpg["rot"]).shape == (3, 3)
 
@@ -242,6 +249,7 @@ def test_lru_and_budget_cfg(scene, plain_room):
     assert svc._budget_cfg(cache_a, 0) is svc.cfg
     cache_a[("hist_plan", 64, 128)] = FakePlan()
     assert cfg_get(svc._budget_cfg(cache_b, 0), "slab_bytes_cap") == 0
+    assert svc.plan_bytes() == {"cpu": 1200}  # /healthz's plan_bytes
 
     # a third room evicts the least recently used one and drops its plans
     svc.load_room(xyz, rgb, name="c")
@@ -474,6 +482,126 @@ def test_track_batch_drains_concurrent_requests(scene):
         np.testing.assert_allclose(out["ypr"], one["ypr"], rtol=0, atol=1e-4)
         assert abs(out["loss"] - one["loss"]) <= 1e-4 * abs(one["loss"])
     assert not svc._track_queues[0]
+
+
+def _traced(fn):
+    """Run ``fn`` under a CPU profiler session that records every thread
+    where the installed PyTorch can; returns its result and the span
+    store's records of the session."""
+    from torch.profiler import ProfilerActivity, profile
+
+    kw = {}
+    try:
+        kw["experimental_config"] = torch._C._profiler._ExperimentalConfig(
+            profile_all_threads=True)
+    except (AttributeError, TypeError):
+        pass
+    t0 = time.time_ns()
+    with profile(activities=[ProfilerActivity.CPU], **kw):
+        out = fn()
+    return out, profiling.span_records(t0, time.time_ns())
+
+
+def test_served_query_spans_one_request(scene):
+    """A full served query under a profiler session: one each of the
+    service's spans and one descent span, all under one request id, the
+    fetch inside the solve; the reply names the route."""
+    xyz, rgb, img, _ = scene
+    svc = _svc()
+    svc.load_room(xyz, rgb, name="box")
+    out, recs = _traced(lambda: svc.localize(img))
+    (root,) = [r for r in recs if r.name == "service.request"]
+    assert root.attrs == {"kind": "query", "device": 0}
+    mine = [r for r in recs if r.requests == root.requests]
+    names = Counter(r.name for r in mine if r.n is None)
+    for name in ("service.request", "service.prep", "service.lock_wait",
+                 "service.solve", "service.fetch",
+                 "localize.stage3_descent"):
+        assert names[name] == 1, name
+    by = {r.name: r for r in mine}
+    assert by["service.prep"].parent == root.id
+    assert by["service.fetch"].parent == by["service.solve"].id
+    assert (by["service.lock_wait"].end_ns <= by["service.solve"].start_ns
+            <= by["service.solve"].end_ns <= root.end_ns)
+    assert out["route"] == "stage 1 gather engine, stage 2 live splat"
+
+
+def test_track_batch_spans_name_both_requests(scene):
+    """Two tracked frames queued while the device is held are answered
+    by one batch: one ``track.batch`` over both request ids with one
+    descent span inside it, and a queue wait for each frame."""
+    from piccolo_tpu_torch.tracking import ypr_from_rot
+
+    xyz, rgb, img, gt_t = scene
+    svc = _svc(track_batch=True, track_max_batch=4)
+    svc.load_room(xyz, rgb, name="box")
+    out0 = svc.localize(img)
+    prev = {"t": out0["t"].tolist(), "ypr": ypr_from_rot(out0["rot"]).tolist()}
+    frames = [(render_at(xyz, rgb, gt_t + d, np.float32([0.92, 0, 0]),
+                         (128, 256), device="cpu").numpy() * 255)
+              .astype(np.uint8)
+              for d in (np.float32([0.03, -0.02, 0.01]),
+                        np.float32([-0.02, 0.03, 0.0]))]
+    outs = [None] * 2
+
+    def two_frames():
+        lock = svc._compute_locks[0]
+        lock.acquire()
+        try:
+            threads = [threading.Thread(
+                target=lambda i=i: outs.__setitem__(
+                    i, svc.localize(frames[i], prev_pose=prev)))
+                for i in range(2)]
+            for th in threads:
+                th.start()
+            for _ in range(600):
+                if len(svc._track_queues[0]) == 2:
+                    break
+                threading.Event().wait(0.05)
+        finally:
+            lock.release()
+        for th in threads:
+            th.join(300)
+        assert not any(th.is_alive() for th in threads)
+
+    _, recs = _traced(two_frames)
+    assert [o["batched"] for o in outs] == [2, 2]
+    roots = [r for r in recs if r.name == "service.request"]
+    assert sorted(r.attrs["kind"] for r in roots) == ["tracked", "tracked"]
+    ids = sorted(r.requests[0] for r in roots)
+    (batch,) = [r for r in recs if r.name == "track.batch"]
+    assert sorted(batch.requests) == ids
+    assert batch.attrs == {"k": 2, "bucket": 2}
+    (descent,) = [r for r in recs if r.name == "localize.stage3_descent"]
+    assert descent.parent == batch.id and descent.requests == batch.requests
+    for name in ("track.upload", "service.fetch"):
+        (sp,) = [r for r in recs if r.name == name]
+        assert sp.parent == batch.id
+    waits = [r for r in recs if r.name == "track.queue_wait"]
+    assert sorted(w.requests[0] for w in waits) == ids
+    for w in waits:
+        assert w.parent == batch.id and w.start_ns <= w.end_ns
+        assert w.end_ns <= batch.end_ns
+    assert len([r for r in recs if r.name == "service.lock_wait"]) == 2
+
+
+@pytest.mark.parametrize("slab_init", [True, False])
+def test_stage1_pair_counters(scene, slab_init):
+    """``stage1.pairs_planned`` counts every real pair with a whole slab
+    plan and none with plans off; both name the query's request."""
+    xyz, rgb, img, _ = scene
+    svc = _svc(slab_init=slab_init)
+    svc.load_room(xyz, rgb, name="box")
+    out, recs = _traced(lambda: svc.localize(img))
+    (root,) = [r for r in recs if r.name == "service.request"]
+    got = {r.name: r.n for r in recs if r.n is not None}
+    assert all(r.requests == root.requests for r in recs if r.n is not None)
+    grids = svc._rooms["box"][0]["grids"]
+    pairs = grids.n_trans * int(grids.rot.shape[0])
+    assert got["stage1.pairs"] == pairs > 0
+    assert got["stage1.pairs_planned"] == (pairs if slab_init else 0)
+    assert out["route"].startswith(
+        "stage 1 f32 slab plan," if slab_init else "stage 1 gather engine,")
 
 
 @pytest.mark.parametrize("kw,err,match", [

@@ -11,8 +11,10 @@ package and PIL, on the CPU.
   * ``harness/gif.py``: PIL decodes every frame to the quantized input,
     with the duration and the loop; ``save_gif`` keeps the reference's
     frame padding.
-  * ``utils``: ``Timer``, ``maybe_trace`` (off without a directory; a
-    profiled query gives the same bits as an unprofiled one),
+  * ``utils``: ``maybe_trace`` (off without a directory; a profiled query
+    gives the same bits as an unprofiled one), the span store (off: nothing
+    recorded and no profiler range; on: a span on another thread
+    stored with its request id and parent, on the profiler's clock),
     ``enable_nan_debug``, ``enable_compilation_cache`` and the CLI's
     ``compilation_cache`` keys, ``debug_visualize``.
 """
@@ -20,6 +22,8 @@ package and PIL, on the CPU.
 import io
 import os
 import sys
+import threading
+import time
 
 import matplotlib
 import numpy as np
@@ -39,10 +43,10 @@ from piccolo_tpu_torch.harness import gif  # noqa: E402
 from piccolo_tpu_torch.harness.outputs import save_gif  # noqa: E402
 from piccolo_tpu_torch.kernels import _build  # noqa: E402
 from piccolo_tpu_torch.utils import (  # noqa: E402
-    Timer,
     enable_compilation_cache,
     enable_nan_debug,
     maybe_trace,
+    profiling,
 )
 
 torch.set_num_threads(2)
@@ -228,13 +232,77 @@ def test_save_gif_keeps_the_reference_padding(tmp_path):
 
 
 def test_timer_and_trace_off():
-    with Timer() as t:
-        pass
-    assert t.elapsed >= 0
     with maybe_trace(None) as prof:
         assert prof is None
     with maybe_trace("") as prof:
         assert prof is None
+
+
+def test_span_off_records_nothing(monkeypatch):
+    """With no profiler session a span, request, counter or record stores
+    nothing and opens no profiler range."""
+    def refuse(*a, **k):
+        raise AssertionError("a profiler range opened with tracing off")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", refuse)
+    assert not profiling.tracing()
+    t0 = time.time_ns()
+    with profiling.request("test.request", kind="query"):
+        with profiling.span("test.span", k=1):
+            profiling.count("test.count", 3)
+            profiling.record("test.wait", t0, t0 + 1)
+            assert profiling.current_requests() == ()
+    assert profiling.span("a") is profiling.span("b", k=2)
+    assert profiling.span_records(t0, time.time_ns()) == []
+
+
+def _all_threads_profile():
+    """A CPU profiler session that records every thread where the
+    installed PyTorch can."""
+    from torch.profiler import ProfilerActivity, profile
+
+    kw = {}
+    try:
+        kw["experimental_config"] = torch._C._profiler._ExperimentalConfig(
+            profile_all_threads=True)
+    except (AttributeError, TypeError):
+        pass
+    return profile(activities=[ProfilerActivity.CPU], **kw)
+
+
+def test_span_on_records_a_second_thread():
+    """A session opened on this thread turns spans on for another: the
+    child span carries the root's request id and names it as parent, and
+    both stamps lie within 1 ms of the profiler's own events."""
+    def work():
+        with profiling.request("test.request", kind="query"):
+            with profiling.span("test.child", k=1):
+                profiling.count("test.count", 3)
+                time.sleep(0.002)
+
+    t0 = time.time_ns()
+    with _all_threads_profile() as prof:
+        th = threading.Thread(target=work)
+        th.start()
+        th.join(30)
+    assert not th.is_alive() and not profiling.tracing()
+    recs = {r.name: r for r in profiling.span_records(t0, time.time_ns())}
+    root, child, n = (recs["test.request"], recs["test.child"],
+                      recs["test.count"])
+    assert len(root.requests) == 1 and root.parent is None
+    assert child.requests == n.requests == root.requests
+    assert child.parent == root.id and n.parent == child.id
+    assert root.attrs == {"kind": "query"} and child.attrs == {"k": 1}
+    assert n.n == 3 and child.n is None
+    assert child.thread == root.thread != threading.get_ident()
+    assert root.start_ns <= child.start_ns <= child.end_ns <= root.end_ns
+    events = {e.name(): e for e in prof.profiler.kineto_results.events()
+              if e.name() in recs}
+    for r in (root, child):
+        e = events[r.name]
+        assert abs(e.start_ns() - r.start_ns) < 1_000_000
+        assert abs(e.end_ns() - r.end_ns) < 1_000_000
 
 
 def test_profiled_query_has_the_unprofiled_bits(tmp_path):
