@@ -2783,8 +2783,10 @@ def _serving_session(cfg, pcd, pcd2, panos, auto_panos, dev, check_auto):
     kw = svc._probe_kwargs()
     img_d = torch.as_tensor(img_init, dtype=torch.float32, device=dev)
     per = svcs["True"]
-    preps = [(per._prepare(queries[1][1], per._rooms[n][0]), per._rooms[n][0])
-             for n in (pcd, pcd2)]
+    preps = [(per._prep_head(queries[1][1], per._rooms[n][0]),
+              per._rooms[n][0]) for n in (pcd, pcd2)]
+    for prep, cache in preps:
+        per._finish(prep, cache)
 
     def tables():
         for r in range(len(st.names)):

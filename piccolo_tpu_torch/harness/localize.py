@@ -64,7 +64,7 @@ from .. import data as data_mod
 from ..color import color_match, color_mod
 from ..config import cfg_get
 from ..convert import cloud_from_numpy
-from ..device import resolve_device
+from ..device import as_tensor, resolve_device
 from ..init.candidates import generate_rot_points, generate_trans_points
 from ..init.refine import SUPPORTED_CRITERIA, check_criterion, make_input
 from ..ops.pano import render_pano
@@ -98,7 +98,7 @@ from .prefetch import AsyncWriter, Prefetcher
 __all__ = ["localize_stanford", "localize_omniscenes", "get_init_dict",
            "prepare_stanford_images", "prepare_omniscenes_images",
            "finish_omniscenes_images", "resize_ablate_omniscenes",
-           "synth_ablate"]
+           "prepare_images_card", "synth_ablate"]
 
 # One slab-plan build at a time, process-wide: an orphaned background build
 # of the previous room keeps its memory until it finishes, and two near-cap
@@ -293,8 +293,7 @@ def finish_omniscenes_images(cfg, orig: np.ndarray, room: Dict):
             orig = (mod_img * 255).astype(np.uint8)
             rgb_used = _pad_rgb(rgb_mod, int(room["mask"].shape[0]),
                                 room["device"])
-    init_dh = max(cfg_get(cfg, "init_downsample_h", 1) // 2, 1)
-    init_dw = max(cfg_get(cfg, "init_downsample_w", 1) // 2, 1)
+    init_dh, init_dw = _omniscenes_init_downsample(cfg)
     main_dh = cfg_get(cfg, "main_downsample_h", 1)
     main_dw = cfg_get(cfg, "main_downsample_w", 1)
     H0, W0 = orig.shape[:2]
@@ -304,6 +303,63 @@ def finish_omniscenes_images(cfg, orig: np.ndarray, room: Dict):
         img_main = resize(orig, (W0 // main_dw, H0 // main_dh)).astype(np.float32) / 255.0
         prep_timed = time.time() - rt0
     return orig, img_init, img_main, rgb_used, prep_timed
+
+
+def _omniscenes_init_downsample(cfg):
+    """OmniScenes' init downsample ``(h, w)``: the config's, halved by the
+    reference "to match resolution with stanford" (localize.py:349-350)."""
+    return (max(cfg_get(cfg, "init_downsample_h", 1) // 2, 1),
+            max(cfg_get(cfg, "init_downsample_w", 1) // 2, 1))
+
+
+def _card_prep_ok(cfg, omni: bool) -> bool:
+    """Whether a served request's prep runs on the room's device
+    (:func:`prepare_images_card`): under the colour modes and flags that
+    :func:`_track_fast_ok` admits, and with the init and main images at the
+    panorama's full size, so the host would resize nothing.  ``omni``: the
+    config is OmniScenes'.  Both shipped configs pass; the rest keeps the
+    numpy prep."""
+    init = (_omniscenes_init_downsample(cfg) if omni else
+            (cfg_get(cfg, "init_downsample_h", 1),
+             cfg_get(cfg, "init_downsample_w", 1)))
+    return (_track_fast_ok(cfg) and init == (1, 1)
+            and cfg_get(cfg, "main_downsample_h", 1) == 1
+            and cfg_get(cfg, "main_downsample_w", 1) == 1)
+
+
+def prepare_images_card(cfg, img_u8, room: Dict, omni: bool):
+    """The per-query prep of either dataset on the room's device, where
+    :func:`_card_prep_ok` admits the config (``omni``: OmniScenes'): the
+    uint8 panorama (numpy, or a tensor on the device) is copied there once
+    and converted to f32; OmniScenes then runs ``match_color`` with the
+    uint8 requantisation and ``sharpen_color`` (``tracking.colour_frame``),
+    Stanford sharpens its init image only.  The room holds
+    :func:`_room_colour_state`'s state.  On the CPU the histogram kernels
+    run their plain versions.
+
+    Returns :func:`prepare_stanford_images`' tuple, its images and a
+    rebound ``rgb_used`` as tensors on the room's device (OmniScenes' init
+    and main image are one tensor); ``prep_timed`` is the host time of the
+    main image's conversion.  Equal to the host prep within ``color.py``'s
+    documented deltas (image-side quantiles in f32, the sharpen LUT's exact
+    integer floor), bit for bit without a colour mode.  It reads nothing
+    back to the host."""
+    from ..tracking import colour_frame
+
+    dev = room["device"]
+    u8 = as_tensor(img_u8, dev, torch.uint8)
+    rt0 = time.time()
+    # a true division, as numpy's: the card divides by a Python scalar as
+    # a multiply by its reciprocal, an ulp off at 126 of the 256 levels
+    img = u8.to(torch.float32) / torch.full((), 255.0, device=dev)
+    prep_timed = time.time() - rt0
+    cdf = room.get("cdf") if omni else None
+    sharpen = room.get("sharpen")
+    if cdf is None and sharpen is None:
+        return img, img, room["rgb"], prep_timed
+    with span("service.prep.color"):
+        img_init, rgb_used = colour_frame(img, cdf, sharpen, room["rgb"])
+    return img_init, img_init if omni else img, rgb_used, prep_timed
 
 
 _mode_warned: set = set()
@@ -1366,7 +1422,8 @@ def localize_stanford(cfg, writer=None, log_dir: str = "./log",
 
 
 def _track_fast_ok(cfg) -> bool:
-    """Whether tracked frames take the device colour prep: not when a frame
+    """Whether tracked frames (and, through :func:`_card_prep_ok`, the
+    service's requests) take the device colour prep: not when a frame
     needs a host surface (``save_starting_point`` renders against the
     colour-processed uint8 image), and colour modes only at main size (so
     device and host apply colour and resize in the same order) and, for
@@ -1384,9 +1441,9 @@ def _track_fast_ok(cfg) -> bool:
 
 
 def _room_colour_state(cfg, room) -> None:
-    """The room-static colour state of tracked frames' device prep, on the
-    room's device: the cloud's CDF (``match_color``) and its sharpen state
-    (``sharpen_color``)."""
+    """The room-static colour state of tracked frames' device prep and of
+    :func:`prepare_images_card`, on the room's device: the cloud's CDF
+    (``match_color``) and its sharpen state (``sharpen_color``)."""
     from ..color import cloud_color_cdf, cloud_sharpen_state
     from ..convert import cdf_from_numpy, sharpen_state_from_numpy
 

@@ -62,16 +62,20 @@ import torch
 from .config import cfg_get, make_config, parse_ini
 from .device import as_tensor, resolve_device
 from .harness.localize import (
+    _card_prep_ok,
     _drop_slab_plans,
     _FusedGrids,
     _maybe_mesh,
     _order_bounds,
     _pad_cloud,
+    _room_colour_state,
     _run_fused,
     _use_fused,
     get_init_dict,
+    prepare_images_card,
     prepare_omniscenes_images,
     prepare_stanford_images,
+    resize_ablate_omniscenes,
 )
 from .utils import profiling
 
@@ -81,6 +85,59 @@ __all__ = ["LocalizeService", "ServiceOverloaded", "serve_forever", "main"]
 class ServiceOverloaded(RuntimeError):
     """Raised when admission would exceed ``max_pending`` in-flight
     requests; the HTTP layer answers 503 with Retry-After."""
+
+
+class _FairLock:
+    """A lock handed to its waiters in arrival order.  A ``threading.Lock``
+    lets the releasing thread take it back before a woken waiter runs, and
+    a request that does no host work before the lock (the card's prep)
+    would then hold the card for several requests in a row while another
+    client waits them all out."""
+
+    def __init__(self):
+        self._mutex = threading.Lock()
+        self._waiters: deque = deque()
+        self._held = False
+
+    def acquire(self) -> None:
+        with self._mutex:
+            if not self._held:
+                self._held = True
+                return
+            turn = threading.Event()
+            self._waiters.append(turn)
+        try:
+            turn.wait()  # release() hands the lock over by setting it
+        except BaseException:
+            with self._mutex:
+                handed = turn not in self._waiters
+                if not handed:
+                    self._waiters.remove(turn)
+            if handed:  # an interrupted waiter passes its turn on
+                self.release()
+            raise
+
+    def release(self) -> None:
+        with self._mutex:
+            if self._waiters:
+                self._waiters.popleft().set()
+            else:
+                self._held = False
+
+    def locked(self) -> bool:
+        return self._held
+
+
+class _Prep:
+    """A request's prep for one room: the uint8 panorama the host's part
+    left and the prepared ``(img_init, img_main, rgb_used, prep_timed)``,
+    which the host's numpy prep gives at once and the card's
+    (``LocalizeService._finish``) under the compute lock."""
+
+    __slots__ = ("img", "done")
+
+    def __init__(self, img: np.ndarray, done: Optional[tuple] = None):
+        self.img, self.done = img, done
 
 
 _CFG_DEFAULTS = dict(
@@ -122,6 +179,10 @@ class LocalizeService:
                 "serving returns no per-iteration artifacts; drop "
                 "visualize=True from the config"
             )
+        # the request's prep on the room's device where the config allows
+        # (harness _card_prep_ok), else the harness's numpy prep
+        self._omni = "mni" in cfg_get(cfg, "dataset", "Stanford2D-3D-S")
+        self._card_prep = _card_prep_ok(cfg, self._omni)
         dev = resolve_device(device)
         self.exec_cache = None  # what the executable cache found, if on
         exec_dir = cfg_get(cfg, "exec_cache_dir")
@@ -136,10 +197,11 @@ class LocalizeService:
         if self.mesh is not None:
             self._devices = [self.mesh.lead]
         self.device = self._devices[0]
-        # one compute lock per query device: requests prep on their own
-        # threads while one holds the card; the room registry has its own
-        # lock so health checks and loads never wait out a query
-        self._compute_locks = [threading.Lock() for _ in self._devices]
+        # one compute lock per query device, taken in arrival order:
+        # requests run the host's prep on their own threads while one holds
+        # the card; the room registry has its own lock so health checks and
+        # loads never wait out a query
+        self._compute_locks = [_FairLock() for _ in self._devices]
         self._rr_lock = threading.Lock()
         self._rr = 0
         self._rooms_lock = threading.Lock()
@@ -238,6 +300,8 @@ class LocalizeService:
                 pcd=name, xyz_np=xyz, rgb_np=rgb, xyz=xyz_d, rgb=rgb_d,
                 mask=mask_d, lo=lo, hi=hi, device=dev,
                 grids=_FusedGrids(xyz, self.init_dict, dev)))
+            if self._card_prep:  # the colour state of the card's prep
+                _room_colour_state(self.cfg, caches[-1])
         with self._rooms_lock:
             self._rooms.pop(name, None)
             self._rooms[name] = caches
@@ -287,7 +351,9 @@ class LocalizeService:
         (default: the most recently used); ``room="auto"`` picks the room
         whose localization loss is lowest and adds ``room_scores``
         (``_select_room``).  Preprocessing is the harness's own per-query
-        prep.  Under ``query_devices`` requests take the devices in turn.
+        prep, on the room's device under the compute lock where the config
+        allows (``harness.localize._card_prep_ok``).  Under
+        ``query_devices`` requests take the devices in turn.
 
         Returns a dict with the winner pose (``t`` (3,), ``rot`` (3, 3)),
         its ``loss``, ``winner``, the candidates' ``cand_loss``,
@@ -336,16 +402,44 @@ class LocalizeService:
             with self._pending_lock:
                 self._pending -= 1
 
-    def _prepare(self, img: np.ndarray, cache: Dict):
-        """The harness's own per-query prep for this service's dataset."""
+    def _prep_head(self, img: np.ndarray, cache: Dict) -> _Prep:
+        """The host's part of a request's prep for one room, outside the
+        compute lock.  Where the config allows (``_card_prep``) only the
+        uint8 head: OmniScenes' 2048x1024 resize and ablations (an identity
+        on a 2048x1024 panorama without ablations), the rest left to
+        :meth:`_finish`.  Else the harness's whole numpy prep for the
+        dataset, in one ``service.prep`` span."""
+        if self._card_prep:
+            return _Prep(resize_ablate_omniscenes(self.cfg, img)
+                         if self._omni else img)
         with profiling.span("service.prep"):
-            if "mni" in cfg_get(self.cfg, "dataset", "Stanford2D-3D-S"):
-                _, img_init, img_main, rgb_used, prep_timed = (
-                    prepare_omniscenes_images(self.cfg, img, cache))
-            else:
-                img_init, img_main, rgb_used, prep_timed = (
-                    prepare_stanford_images(self.cfg, img, cache))
-        return img_init, img_main, rgb_used, prep_timed
+            profiling.count("service.prep_host")
+            if self._omni:
+                return _Prep(img, prepare_omniscenes_images(
+                    self.cfg, img, cache)[1:])
+            return _Prep(img, prepare_stanford_images(self.cfg, img, cache))
+
+    def _finish(self, prep: _Prep, cache: Dict,
+                requests: Optional[tuple] = None):
+        """A request's ``(img_init, img_main, rgb_used, prep_timed)``, the
+        card's prep finished on the room's device once
+        (``harness.localize.prepare_images_card``) in a ``service.prep``
+        span; the service calls it under the compute lock, so no request
+        touches the device outside it.  ``requests``: the span's request
+        ids where they are not the thread's own (a track batch's leader
+        finishing the other requests' preps)."""
+        if prep.done is None:
+            with profiling.span("service.prep", requests=requests):
+                profiling.count("service.prep_card")
+                prep.done = prepare_images_card(self.cfg, prep.img, cache,
+                                                self._omni)
+        return prep.done
+
+    def _prepare(self, img: np.ndarray, cache: Dict):
+        """The whole per-query prep of one room for this service's
+        dataset, finished: ``(img_init, img_main, rgb_used,
+        prep_timed)``."""
+        return self._finish(self._prep_head(img, cache), cache)
 
     @contextlib.contextmanager
     def _holding(self, device_index: int):
@@ -428,21 +522,24 @@ class LocalizeService:
         """One full fused query against a room: the device work and ONE
         packed copy of the result to the host, under the compute lock; the
         reply carries the stages' ``route``."""
-        img_init, img_main, rgb_used, prep_timed = prep
-        with self._holding(device_index), profiling.span("service.solve"):
-            t0 = time.time()
-            # plans build in line: warming exists to take this cost at load
-            res, route = _run_fused(
-                img_init, img_main, cache, rgb_used,
-                self._budget_cfg(cache, device_index), self.init_dict,
-                cache["grids"], self.mesh, sync_plans=True,
-            )
-            with profiling.span("service.fetch"):
-                packed = torch.cat([
-                    res.t, res.rot.reshape(-1), res.loss.reshape(1),
-                    res.winner.reshape(1).to(torch.float32), res.cand_loss,
-                ]).cpu().numpy()
-            elapsed = time.time() - t0 + prep_timed
+        with self._holding(device_index):
+            img_init, img_main, rgb_used, prep_timed = self._finish(prep,
+                                                                    cache)
+            with profiling.span("service.solve"):
+                t0 = time.time()
+                # plans build in line: warming takes this cost at load
+                res, route = _run_fused(
+                    img_init, img_main, cache, rgb_used,
+                    self._budget_cfg(cache, device_index), self.init_dict,
+                    cache["grids"], self.mesh, sync_plans=True,
+                )
+                with profiling.span("service.fetch"):
+                    packed = torch.cat([
+                        res.t, res.rot.reshape(-1), res.loss.reshape(1),
+                        res.winner.reshape(1).to(torch.float32),
+                        res.cand_loss,
+                    ]).cpu().numpy()
+                elapsed = time.time() - t0 + prep_timed
         return dict(
             t=packed[:3], rot=packed[3:12].reshape(3, 3),
             loss=float(packed[12]), winner=int(packed[13]),
@@ -475,17 +572,18 @@ class LocalizeService:
         as :meth:`_compute_room`."""
         from .tracking import track_step_fetched
 
-        _, img_main, rgb_used, prep_timed = prep
         t_prev, ypr_prev = self._parse_prev_pose(prev_pose)
-        with self._holding(device_index), profiling.span("service.solve"):
-            t0 = time.time()
-            with profiling.span("track.upload"):
-                img = as_tensor(img_main, cache["device"], torch.float32)
-            t, ypr, rot, loss = track_step_fetched(
-                img, cache["xyz"], rgb_used, t_prev, ypr_prev,
-                cache["lo"], cache["hi"], cache["mask"],
-                **self._track_kw(cache))
-            elapsed = time.time() - t0 + prep_timed
+        with self._holding(device_index):
+            _, img_main, rgb_used, prep_timed = self._finish(prep, cache)
+            with profiling.span("service.solve"):
+                t0 = time.time()
+                with profiling.span("track.upload"):
+                    img = as_tensor(img_main, cache["device"], torch.float32)
+                t, ypr, rot, loss = track_step_fetched(
+                    img, cache["xyz"], rgb_used, t_prev, ypr_prev,
+                    cache["lo"], cache["hi"], cache["mask"],
+                    **self._track_kw(cache))
+                elapsed = time.time() - t0 + prep_timed
         return dict(t=t, rot=rot, loss=loss, winner=0,
                     cand_loss=np.asarray([loss], np.float32), ypr=ypr,
                     time_s=elapsed, tracked=True)
@@ -495,7 +593,8 @@ class LocalizeService:
         """``track_batch = True``: tracked requests waiting on the same
         device for the same room and frame shape are drained as ONE batch
         (``tracking.track_steps_batched``: one K-start descent, one graph on
-        the card) by whichever request next takes the compute lock.
+        the card) by whichever request next takes the compute lock, which
+        also finishes each request's prep on the card.
 
         A batch forms only from requests already queued, so serial traffic
         runs the single-stream path with no added latency.  Batches pad up
@@ -503,14 +602,12 @@ class LocalizeService:
         meets a handful of descent shapes, not one per K.  A request whose
         colours were rebound (``sharpen_color``) runs alone: its cloud
         colours are its own, and the batch shares the room's."""
-        _, img_main, rgb_used, prep_timed = prep
         if (not cfg_get(self.cfg, "track_batch", False)
-                or rgb_used is not cache["rgb"]):
+                or cfg_get(self.cfg, "sharpen_color", False)):
             return self._track_room(prep, cache, device_index, prev_pose)
         t_prev, ypr_prev = self._parse_prev_pose(prev_pose)
-        entry = dict(img=img_main, t=t_prev, ypr=ypr_prev,
-                     prep_timed=prep_timed,
-                     key=(id(cache), tuple(img_main.shape)),
+        entry = dict(prep=prep, t=t_prev, ypr=ypr_prev,
+                     key=(id(cache), tuple(prep.img.shape)),
                      event=threading.Event(), out=None,
                      requests=profiling.current_requests())
         qlock = self._track_qlocks[device_index]
@@ -543,11 +640,13 @@ class LocalizeService:
         return out
 
     def _run_track_batch(self, batch, cache) -> None:
-        """Run one drained batch of tracked requests (compute lock held)
-        and hand each request its answer, with ``"batched": K`` when
-        K > 1.  While tracing, the batch is a ``track.batch`` span over its
-        requests' ids, and each request's wait from its queueing to the
-        batch's start a ``track.queue_wait`` record."""
+        """Run one drained batch of tracked requests (compute lock held):
+        finish each request's prep, then one descent, and hand each
+        request its answer, with ``"batched": K`` when K > 1.  While
+        tracing, the batch is a ``track.batch`` span over its requests'
+        ids, each request's wait from its queueing to the batch's start a
+        ``track.queue_wait`` record, and its prep its own ``service.prep``
+        span."""
         from .tracking import track_step_fetched, track_steps_batched
 
         bucket = 1
@@ -562,6 +661,9 @@ class LocalizeService:
                 for e in batch:
                     profiling.record("track.queue_wait", e["queued_ns"],
                                      start, requests=e["requests"])
+                for e in batch:
+                    _, e["img"], _, e["prep_timed"] = self._finish(
+                        e["prep"], cache, requests=e["requests"])
                 kw = self._track_kw(cache)
                 dev = cache["device"]
                 if len(batch) == 1:
@@ -602,8 +704,8 @@ class LocalizeService:
         """The per-room ranking probe of room='auto': stages 1 and 2, then
         a short pruned descent at the init resolution
         (``harness.localize._run_fused(probe=True)``); the winner loss."""
-        img_init, img_main, rgb_used, _ = prep
         with self._holding(device_index):
+            img_init, img_main, rgb_used, _ = self._finish(prep, cache)
             res, _ = _run_fused(
                 img_init, img_main, cache, rgb_used,
                 self._budget_cfg(cache, device_index), self.init_dict,
@@ -682,13 +784,14 @@ class LocalizeService:
             candidates = [(name, replicas[device_index])
                           for name, replicas in self._rooms.items()]
         scores: Dict[str, float] = {}
-        preps: Dict[str, tuple] = {}
+        preps: Dict[str, _Prep] = {}
         # one-ahead prep: room k+1's host prep runs on a thread while room
-        # k holds the device
-        next_prep = [self._prepare(img, candidates[0][1])]
+        # k holds the device (on the card's prep, only its uint8 head; the
+        # rest finishes under the compute lock)
+        next_prep = [self._prep_head(img, candidates[0][1])]
 
         def _prep_into(cache):
-            next_prep[0] = self._prepare(img, cache)
+            next_prep[0] = self._prep_head(img, cache)
 
         probe_cfg = cfg_get(self.cfg, "room_auto_probe", False)
         probe = bool(probe_cfg) and len(candidates) > 1
@@ -697,14 +800,15 @@ class LocalizeService:
         order, cut = candidates, None
         if batched:
             st = self._probe_state_batched(device_index)
-            prep0 = next_prep[0]
             with self._holding(device_index):
+                prep0 = self._finish(next_prep[0], candidates[0][1])
                 losses = st.losses(prep0[0], **self._probe_kwargs())
             # the images are room-independent here, but rgb_used must be
             # each room's own colours (identity with cache["rgb"] admits the
             # room's baked plans in _run_fused)
             for name, cache in candidates:
-                preps[name] = (prep0[0], prep0[1], cache["rgb"], prep0[3])
+                preps[name] = _Prep(next_prep[0].img, (
+                    prep0[0], prep0[1], cache["rgb"], prep0[3]))
             scores.update(zip(st.names, (float(v) for v in losses)))
             for name, _ in candidates:
                 # a load or eviction between the snapshot and the state's
@@ -808,8 +912,9 @@ class LocalizeService:
                 )
             room, fields, room_scores = self._select_room(img, device_index)
         else:
-            # the room resolves under the registry lock; the host prep runs
-            # outside the compute lock, overlapping other requests' compute
+            # the room resolves under the registry lock; the host's prep (or
+            # its uint8 head) runs outside the compute lock, overlapping
+            # other requests' compute
             with self._rooms_lock:
                 if room is None:
                     room = next(reversed(self._rooms))
@@ -818,7 +923,7 @@ class LocalizeService:
                                    f"(have: {list(self._rooms)})")
                 self._rooms.move_to_end(room)
                 cache = self._rooms[room][device_index]
-            prep = self._prepare(img, cache)
+            prep = self._prep_head(img, cache)
             if prev_pose is not None:
                 fields = self._track_room_maybe_batched(
                     prep, cache, device_index, prev_pose)

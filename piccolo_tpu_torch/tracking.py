@@ -143,10 +143,17 @@ def track_step_fetched(img, xyz, rgb, prev_t, prev_ypr, lo, hi,
 
 
 def _prep_frame(img_u8, cdf, sharpen, rgb, dev):
-    """uint8 frame -> f32 on ``dev`` -> optional CDF match (then the batch
-    path's uint8 requantisation) -> optional sharpen, which rebinds the
-    cloud colours; returns (img, rgb)."""
+    """uint8 frame -> f32 on ``dev`` -> :func:`colour_frame`; returns
+    (img, rgb)."""
     img = as_tensor(img_u8, dev, torch.uint8).to(torch.float32) / 255.0
+    return colour_frame(img, cdf, sharpen, rgb)
+
+
+def colour_frame(img, cdf, sharpen, rgb):
+    """f32 frame in [0, 1] on its device -> optional CDF match (then the
+    batch path's uint8 requantisation) -> optional sharpen, which rebinds
+    the cloud colours; returns (img, rgb)."""
+    dev = img.device
     if cdf is not None:
         values, quant = (cdf if isinstance(cdf[0], torch.Tensor)
                          else cdf_from_numpy(cdf, dev))

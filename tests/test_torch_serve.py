@@ -369,14 +369,17 @@ def test_room_probe_ranks_like_jax(scene, plain_room):
     xyz, rgb, img, _ = scene
     cfg = dict(_CFG, room_auto_probe=True, room_auto_probe_iters=20)
     losses = []
-    for svc in (LocalizeService(max_rooms=2, device="cpu", **cfg),
-                JaxService(max_rooms=2, **cfg)):
+    port = LocalizeService(max_rooms=2, device="cpu", **cfg)
+    for svc in (port, JaxService(max_rooms=2, **cfg)):
         svc.load_room(*plain_room, name="plain")
         svc.load_room(xyz, rgb, name="checker")
         got = []
         for name in ("plain", "checker"):
             cache = svc._rooms[name][0]
-            got.append(svc._probe_room(svc._prepare(img, cache), cache, 0))
+            # the port's probe takes a request's prep as the host left it
+            prep = (svc._prep_head(img, cache) if svc is port
+                    else svc._prepare(img, cache))
+            got.append(svc._probe_room(prep, cache, 0))
         losses.append(np.float32(got))
     got, want = losses
     assert got[1] < got[0] and want[1] < want[0]
