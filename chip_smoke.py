@@ -165,8 +165,8 @@ Phases (any failure exits non-zero; each prints its seconds):
      of each trace's counts);
  28. the executable cache (after phase 21): two fresh CLI processes in turn
      under configs/stanford.ini with one exec_cache_dir, empty before the
-     first: the first builds the three kernel libraries and the JPEG codec,
-     the second loads all four and gives the first's rows bit for bit but
+     first: the first builds the four kernel libraries and the JPEG codec,
+     the second loads all five and gives the first's rows bit for bit but
      for time; each one's seconds from its start to its first answer;
  29. init_distributed: two processes on the card join one group (backend
      nccl) over a localhost coordinator and run the halves of phase 28's
@@ -226,6 +226,21 @@ Phases (any failure exits non-zero; each prints its seconds):
      executable-cache directory (60,000 points, 1024x512, a 1 x 1 mesh):
      restart false then true, every library of the second a hit, equal
      t_err, one block histogram a query counted in each process.
+ 41. the descent step's kernel pair (kernels/descent_step.py), after phase
+     20: one more library query under torch.profiler with the pair's
+     launch count zeroed first, its descent graphs' replays
+     (solver.graph_stats) and the pair's kernels in its trace, which must
+     equal the replays plus the wrapper's eager launches; then
+     scripts/bench_descent_step.py's checks and timings at the OmniScenes
+     cell's shapes (a ray-cast room of 240,000 points, dense 2048x1024
+     panoramas): the pair against its plain version for every table
+     dtype, wrap, mask, 6 starts, 1 start and 3 stacked streams, two runs
+     of the captured step bit-equal, the 6 x 100 descent against the
+     autograd step from near starts (the script's bounds), and the
+     captured step timed against the same graph of the autograd step, the
+     plain version and its bound: a `descent_step` row a timed shape in
+     the kernels line, the 6-start row with the library query's traced
+     launches and graph replays.
 On one card phases 25 and 26 print that they need two cards.
 Every descent above runs its captured graph (solver.py), and every
 profiled query reports its kernel and graph launches.  Then the routing
@@ -1529,8 +1544,8 @@ def _child_env():
 
 def phase_exec_cache(tree, dev):
     """Two fresh CLI processes in turn under configs/stanford.ini with one
-    exec_cache_dir, empty before the first: the first builds the three
-    kernel libraries and the JPEG codec, the second loads all four (hits)
+    exec_cache_dir, empty before the first: the first builds the four
+    kernel libraries and the JPEG codec, the second loads all five (hits)
     and gives the first's rows bit for bit but for time.  Returns the
     first's rows (the one-process sweep of phase 29)."""
     base = os.path.dirname(tree)
@@ -1554,7 +1569,7 @@ def phase_exec_cache(tree, dev):
         log(f"exec cache process {i}: {line}; first answer {first:.2f} s "
             f"after the process started (its query {rows[0][9]} s), wall "
             f"{wall:.2f} s for {len(rows)} queries")
-    n_libs = 4 if dev.type == "cuda" else 1  # the CPU builds only the codec
+    n_libs = 5 if dev.type == "cuda" else 1  # the CPU builds only the codec
     if f"0 hit(s), {n_libs} built" not in runs[0]["line"]:
         raise AssertionError(f"the first process did not build: {runs[0]}")
     if f"{n_libs} hit(s), 0 built, 0 rebuilt" not in runs[1]["line"]:
@@ -3000,6 +3015,97 @@ def phase_graph_vs_eager(room, dev):
         f"; all graphed {[round(v, 4) for v in secs[False]]}, eager "
         f"{[round(v, 4) for v in secs[True]]}")
     return dict(graphed=(g50, g90), eager=(e50, e90))
+
+
+def _descent_query_counts(room, dev):
+    """One library query (phase 20's room, its graphs captured already)
+    under torch.profiler, the step's launch count zeroed just before: the
+    pair's kernels in its trace, its descent graphs' replays
+    (solver.graph_stats) and the wrapper's eager launches and captures.
+    The trace must hold each kernel once a replay or launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from piccolo_tpu_torch import solver
+    from piccolo_tpu_torch.kernels.descent_step import descent_step
+
+    _, _, img_init, img_main = _query_images(301, room["xyz"], room["rgb"],
+                                             dev)
+    _query(room, img_init, img_main, dev)  # this image's first call
+    torch.cuda.synchronize()
+    descent_step.launches = 0
+    before = solver.graph_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _query(room, img_init, img_main, dev)
+        torch.cuda.synchronize()
+    after = solver.graph_stats()
+    old = {g["capture"]: g["replays"] for g in before["graphs"]}
+    replays = sum(g["replays"] - old.get(g["capture"], 0)
+                  for g in after["graphs"])
+    traced = {"descent_partials_kernel": 0, "descent_update_kernel": 0}
+    n_device = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        n_device += 1
+        for k in traced:
+            traced[k] += k in e.name()
+    out = dict(replays=replays, launches=descent_step.launches,
+               traced=traced if n_device else None,
+               captures=after["captures"] - before["captures"])
+    log(f"descent step in one library query: {replays} graph replays, "
+        f"{out['launches']} eager launches or captures of the pair, "
+        f"{out['captures']} captures; in its trace "
+        + ("no device time (not measured)" if not n_device else
+           ", ".join(f"{k} {v}" for k, v in traced.items())))
+    if n_device and set(traced.values()) != {replays + out["launches"]}:
+        raise AssertionError(f"descent step: the trace holds {traced}, the "
+                             f"graphs replayed {replays} times and the "
+                             f"wrapper launched {out['launches']} times")
+    if not replays:
+        raise AssertionError("descent step: the library query replayed no "
+                             "descent graph")
+    return out
+
+
+def phase_descent_step(room, dev):
+    """Phase 41: the pair's launches in one library query
+    (_descent_query_counts), then scripts/bench_descent_step.py's checks
+    and timings of the descent step's kernels at the OmniScenes cell's
+    shapes; returns a kernels-line row for each timed shape."""
+    from scripts import bench_descent_step
+
+    counts = _descent_query_counts(room, dev)
+    out = bench_descent_step.measure(log=log)
+    if not out["ok"]:
+        raise AssertionError("descent step: the kernels' checks failed (see "
+                             "the lines above)")
+    rows = []
+    for t in out["timing"]:
+        row = dict(
+            name="descent_step", route="the captured step on one cloud",
+            source="piccolo_tpu_torch/kernels/csrc/descent_step.cu",
+            replaces="none: added (the JAX descent is an XLA gather)",
+            ms=t["kernel_graph_ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
+            max_abs_err=None, autograd_graph_ms=t["autograd_graph_ms"])
+        timed_at = (f"timed at the OmniScenes cell's shapes, "
+                    f"{t['starts']} {'stacked streams' if t['stacked'] else 'starts'}"
+                    f" x {t['points']} points, 2048x1024 bf16 table")
+        if t["stacked"]:  # tracked batches: timed, their launches not counted
+            row.update(path=f"{timed_at}; launches not counted",
+                       launches=None, launches_per_query=None,
+                       replays_per_query=None)
+        else:
+            n = (None if counts["traced"] is None
+                 else counts["traced"]["descent_partials_kernel"])
+            row.update(path=f"{timed_at}; launches: one library query's "
+                            "trace (graph replays included)",
+                       launches=n, launches_per_query=n,
+                       replays_per_query=counts["replays"])
+        rows.append(row)
+    return rows
 
 
 def phase_cli_parallel(cli_tree, dev):
@@ -4450,7 +4556,7 @@ def phase_sharded_restart_script(dev, tmp):
             slab_group_sums_compact=0, slab_group_sums_q8=0))
         runs.append(out)
     first, second = runs
-    n_libs = 4 if dev.type == "cuda" else 1
+    n_libs = 5 if dev.type == "cuda" else 1
     if (first["restart"], second["restart"]) != (False, True):
         raise AssertionError(f"sharded restart: restart "
                              f"{first['restart']}, {second['restart']}")
@@ -4485,6 +4591,7 @@ def main():
     timed("routing library", phase_routing_library, room, dev)
     timed("profile", phase_profile, room, dev, median_s)
     timed("graph vs eager", phase_graph_vs_eager, room, dev)
+    rows += timed("descent step", phase_descent_step, room, dev)
     timed("speed modes", phase_speed_modes, room, dev)
     mesh = timed("mesh", phase_mesh, room, dev)
     del room
@@ -4592,9 +4699,10 @@ def main():
             "launches_per_query", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     # optional: by card on the mesh's rows, the CTA threads and an empty
-    # launch's ms on the block histogram's
+    # launch's ms on the block histogram's, the autograd step's graph and
+    # a query's replays on the descent step's
     by_card = ("launches_by_card", "max_abs_err_by_card", "threads",
-               "empty_launch_ms")
+               "empty_launch_ms", "autograd_graph_ms", "replays_per_query")
     print(json.dumps({"kernels": [
         {k: row[k] for k in keys + by_card if k in keys or k in row}
         for row in rows]}))

@@ -7,13 +7,19 @@ every start its own gradient.  The translation clamp applies to the
 parameters only, after each Adam update (Adam moments are not projected).
 
 On the card the descent is one captured device program, the counterpart of
-the JAX package's ``lax.scan`` under ``jit``: the step (forward,
-``autograd.grad``, Adam + plateau, clamp) is captured once per shape key as
-a CUDA graph that reads and writes static buffers in place, and a descent
-copies its inputs in, replays the graph once per iteration and returns
-clones of the buffers.  The key is the device, the statics (table height
-and width, patience, factor, wrap) and the shape and dtype of every input
-and pose leaf (starts, cloud rows, table rows and dtype, masked or not).
+the JAX package's ``lax.scan`` under ``jit``: the step is captured once per
+shape key as a CUDA graph that reads and writes static buffers in place,
+and a descent copies its inputs in, replays the graph once per iteration
+and returns clones of the buffers.  On one cloud the step the graph holds
+is the two hand-written kernels of ``kernels/descent_step.py`` (loss,
+count and analytic pose gradient, then Adam + plateau + clamp in place;
+``descent_step.engages`` chooses them from the inputs); an (R, N, 3) stack
+of rooms captures the autograd step (forward, ``autograd.grad``, Adam +
+plateau, clamp).  A ``_run`` counts its steps as ``descent.steps_kernel``
+or ``descent.steps_plain`` (``utils.profiling.count``).  The key is the
+device, the statics (table height and width, patience, factor, wrap) and
+the shape and dtype of every input and pose leaf (starts, cloud rows, table
+rows and dtype, masked or not).
 Each graph has its own memory pool; an LRU per device evicts the least
 recently used graphs while the pools and static buffers exceed
 :data:`GRAPH_MEM_FRACTION` of the card (:func:`graph_stats` counts
@@ -21,8 +27,10 @@ captures, evictions and recaptures), and an evicted graph's pool goes with
 its last reference.  On the CPU, under
 ``torch.autograd.set_detect_anomaly`` (``debug_nans``: it syncs the host,
 which a capture cannot hold) and through the private ``_eager`` argument
-the same step runs as a Python loop, one op at a time; the graph replays
-that loop's kernels, so both give the same bits.
+the same step (:func:`_step_body`) runs as a Python loop on the same kind
+of buffers (the two kernels on one cloud on the card, else the autograd
+step; anomaly detection and the CPU always take the autograd step); the
+graph replays that loop's kernels, so both give the same bits.
 
 On a ('cand', 'point') mesh (``parallel``) a step splits in two:
 each shard's loss sums and their pose gradient over its slice of the cloud
@@ -55,6 +63,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from .device import as_tensor, resolve_device
+from .kernels import descent_step as kstep
 from .loss import (
     Pose,
     masked_mean,
@@ -70,6 +79,7 @@ from .ops.sampling import (
     resolve_descent_table,
 )
 from .optim import AdamPlateauState, adam_plateau_step, init_adam_plateau
+from .utils import profiling
 
 __all__ = ["SolveResult", "descend", "evaluate_poses", "solve",
            "graph_stats", "descent_note", "GRAPH_MEM_FRACTION",
@@ -219,24 +229,59 @@ def descent_note(device) -> str:
     return ""
 
 
+def _contiguous(tensors):
+    return [None if t is None
+            else t.clone(memory_format=torch.contiguous_format)
+            for t in tensors]
+
+
+def _step_body(x: StepInputs, s: StepStatics, bufs, loss):
+    """One step in place on the state leaves ``bufs`` and ``loss``, as the
+    graph captures it and the eager loop runs it: the kernel pair where
+    ``descent_step.engages``, else the autograd step."""
+    if kstep.engages(x, bufs[0]):
+        def body():
+            # during a capture the partials come from the graph's own pool,
+            # which keeps them for its replays, as it keeps autograd's
+            # intermediates
+            partials = kstep.scratch(x.xyz.shape[0], loss.shape[0],
+                                     loss.device)
+            kstep.descent_step(x, s, bufs, loss, partials)
+        return body
+    step = _make_step(x, s)
+
+    def body():
+        p, st, out = step(*_from_leaves(bufs))
+        for dst, src in zip(bufs, _state_leaves(p, st)):
+            dst.copy_(src)
+        loss.copy_(out)
+    return body
+
+
 def _run(x: StepInputs, s: StepStatics, params, state, n: int,
          trajectory: bool = False, eager: bool = False):
     """``n`` steps; returns (params, state, last loss, trajectory): the
     trajectory a Pose whose leaves lead with (starts, n), else None."""
+    profiling.count("descent.steps_kernel" if kstep.engages(x, params.t)
+                    else "descent.steps_plain", n)
     if _graphed(params.t.device, eager):
         return _graph_for(x, s, params, state).run(x, params, state, n,
                                                    trajectory)
-    step = _make_step(x, s)
-    loss, states = None, []
+    x = StepInputs(*[None if t is None else t.contiguous() for t in x])
+    bufs = _contiguous(_state_leaves(params, state))
+    loss = torch.empty_like(bufs[1])
+    body = _step_body(x, s, bufs, loss)
+    states = []
     for _ in range(n):
-        params, state, loss = step(params, state)
+        body()
         if trajectory:
-            states.append(params)
+            states.append([b.clone() for b in bufs[:4]])
+    params, state = _from_leaves(bufs)
     traj = None
     if trajectory:
-        traj = Pose(*[torch.stack(xs, dim=params.yaw.dim())
-                      for xs in zip(*(p.leaves() for p in states))])
-    return params, state, loss, traj
+        traj = Pose(*[torch.stack(xs, dim=bufs[1].dim())
+                      for xs in zip(*states)])
+    return params, state, loss if n else None, traj
 
 
 # ---------------------------------------------------------------------------
@@ -316,20 +361,12 @@ class _StepGraph:
         self.lock = threading.Lock()
         self.done = None  # event after the last call's clones
         self.replays = 0
-        self.inputs = StepInputs(*[None if t is None else t.clone()
-                                   for t in x])
-        self.bufs = [t.clone() for t in _state_leaves(params, state)]
-        self.loss = torch.empty_like(params.yaw)
-        step = _make_step(self.inputs, s)
-
-        def body():
-            p, st, loss = step(*_from_leaves(self.bufs))
-            for dst, src in zip(self.bufs, _state_leaves(p, st)):
-                dst.copy_(src)
-            self.loss.copy_(loss)
-
+        self.inputs = StepInputs(*_contiguous(x))
+        self.bufs = _contiguous(_state_leaves(params, state))
+        self.loss = torch.empty_like(self.bufs[1])
+        self.kernel = kstep.engages(self.inputs, params.t)
         self.graph, self.capture_s, self.pool_bytes = _capture(
-            params.t.device, body)
+            params.t.device, _step_body(self.inputs, s, self.bufs, self.loss))
         self.static_bytes = _nbytes(*self.inputs, *self.bufs, self.loss)
 
     def run(self, x: StepInputs, params, state, n: int, trajectory: bool):
@@ -369,7 +406,7 @@ class _StepGraph:
                     width=statics.width, starts=tuple(leaves[1][0]),
                     table=inputs[0][0], table_dtype=str(inputs[0][1]),
                     cloud=inputs[1][0], masked=inputs[3] is not None,
-                    stacked=inputs[6] is not None,
+                    stacked=inputs[6] is not None, kernel=self.kernel,
                     capture_s=self.capture_s, pool_bytes=self.pool_bytes,
                     static_bytes=self.static_bytes, replays=self.replays)
 

@@ -18,9 +18,17 @@ leave alone, and pruned survivors and batched tracking streams stay within
 one-card mesh that repeats cuda:0 gives graphed and eager descents the same
 bits and the single-device query's starts and winner; a two-card mesh gives
 the one-card mesh's bits, and ``query_devices = 2`` serves on both cards
-(these two skip on one card).  The executable cache builds the three
-kernel libraries and the JPEG codec, then hits all four; a graph captured
+(these two skip on one card).  The executable cache builds the four
+kernel libraries and the JPEG codec, then hits all five; a graph captured
 under ``utils.maybe_trace`` gives the bits of one captured without it.
+The descent step's two kernels (``kernels/descent_step.py``) at the
+OmniScenes cell's shapes (240,000 points, a 2048x1024 panorama, 6 starts on
+one table and 3 stacked streams), by ``scripts/bench_descent_step.py``'s
+checks and bounds: against their plain version over every table dtype,
+wrap and mask; two runs of the captured step give the same bits; the
+cell's 6 x 100 descent against the autograd step from starts near the
+pose; and a traced descent counts its 100 steps as
+``descent.steps_kernel``.
 Stage 1's pick at the library's and the Stanford CLI's shapes is the f32
 plan, whole, and it scores faster than the gather engine.
 """
@@ -879,8 +887,8 @@ def test_served_query_devices_on_two_cards(two_cards):
 
 
 def test_exec_cache_builds_then_hits_on_the_card(dev, tmp_path):
-    """A fresh executable-cache directory builds the three kernel libraries
-    and the JPEG codec; a second warm-up loads all four."""
+    """A fresh executable-cache directory builds the four kernel libraries
+    and the JPEG codec; a second warm-up loads all five."""
     from piccolo_tpu_torch.kernels import _build
     from piccolo_tpu_torch.utils import exec_cache
 
@@ -889,8 +897,9 @@ def test_exec_cache_builds_then_hits_on_the_card(dev, tmp_path):
         exec_cache.clear_memo()
         first = exec_cache.warm(tmp_path, dev)
         names = sorted(n.split("-")[0] for n in first["built"])
-        assert names == ["block_histogram", "jpeg_codec", "masked_histogram",
-                         "slab_sampling"] and not first["hits"]
+        assert names == ["block_histogram", "descent_step", "jpeg_codec",
+                         "masked_histogram", "slab_sampling"]
+        assert not first["hits"]
         exec_cache.clear_memo()
         second = exec_cache.warm(tmp_path, dev)
         assert sorted(second["hits"]) == sorted(first["built"])
@@ -940,3 +949,82 @@ def test_trace_holds_its_block_after_many_sessions(dev, tmp_path):
         events = json.loads(path.read_text())["traceEvents"]
         names = [e["name"] for e in events if e.get("cat") == "kernel"]
         assert sum("block_histogram_kernel" in n for n in names) == 1, path
+
+
+# ---------------------------------------------------------------------------
+# the descent step's kernels at the OmniScenes cell's shapes, by the checks
+# of scripts/bench_descent_step.py and under its bounds
+
+
+@pytest.fixture(scope="module")
+def bench():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
+    from scripts import bench_descent_step
+
+    return bench_descent_step
+
+
+@pytest.fixture(scope="module")
+def cell_scene(bench):
+    """240,000 points of a ray-cast checker room with two occluders, three
+    dense 2048x1024 panoramas 3 cm and 0.02 rad apart, a 90% mask, the
+    clamp box and the first panorama's pose."""
+    return bench.scene(240_000, 1024, 2048, 3, torch.device("cuda"))
+
+
+@pytest.mark.parametrize("layout", ["starts", "stacked"])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("wrap", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "uint8"])
+def test_descent_kernels_match_plain(bench, cell_scene, dtype, wrap, masked,
+                                     layout):
+    """The pair against the plain version (``check_case``): the sums of
+    every start (6 on one table, or 3 stacked streams), then one whole
+    step in place and ten more, each call one launch of the pair."""
+    from piccolo_tpu_torch.kernels import descent_step as K
+
+    stacked = 3 if layout == "stacked" else 0
+    n = K.descent_step.launches
+    row = bench.check_case(cell_scene, dtype, wrap, masked, stacked or 6,
+                           stacked)
+    assert row["ok"], row
+    assert K.descent_step.launches == n + 11
+
+
+def test_descent_kernel_replays_are_bit_equal(bench, cell_scene):
+    """Two runs of the captured step from one state: the same bits."""
+    assert bench.replays(cell_scene, 6)
+
+
+def test_descent_kernels_against_the_autograd_step(bench, cell_scene):
+    """The cell's 6 x 100 descent at lr 0.1 on the bf16 table from starts
+    up to 0.1 m and 0.15 rad off, by the kernels' graph and by the autograd
+    step's eager loop.  Adam at lr 0.1 carries a change in the order of a
+    sum to about a centimetre over 100 steps, and the autograd step run one
+    start at a time (its batch's reduction order alone) is the witness of
+    that spread.  Held (``descent``'s ``ok``): each start ends within 2x
+    the witness's widest gap + 2 mm of the autograd step (at most 25 mm),
+    the picked starts' losses within 10% of each other, and each picked
+    start within 2 cm of the panorama's pose."""
+    out = bench.descent(cell_scene, 6, 100, bench.NEAR)
+    print(out)
+    assert out["ok"], out
+
+
+def test_descent_counts_kernel_steps(bench, cell_scene):
+    """While tracing, a 6-start descent of 100 steps stores
+    ``descent.steps_kernel`` 100 on its request, and nothing plain."""
+    from piccolo_tpu_torch import solver
+    from piccolo_tpu_torch.utils import profiling
+
+    x, s = bench.inputs(cell_scene, "bfloat16", False, True, 0)
+    t, ypr = bench.starts(cell_scene, 6, bench.NEAR)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]):
+        with profiling.request("service.request") as req:
+            solver.descend_packed(x, s, t, ypr, 100, 0.1)
+        recs = profiling.span_records(req.start)
+    counts = [(r.name, r.n) for r in recs if r.name.startswith("descent.")
+              and req.requests[0] in r.requests]
+    assert counts == [("descent.steps_kernel", 100)]

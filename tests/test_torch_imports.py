@@ -75,7 +75,8 @@ def test_tools_import_alone_without_jax(module):
 
 
 MEASURE_SCRIPTS = ("measure_tracking_cuda", "measure_serving_cuda",
-           "measure_plan_lifecycle_cuda", "measure_sharded_coldstart_cuda")
+           "measure_plan_lifecycle_cuda", "measure_sharded_coldstart_cuda",
+           "bench_descent_step")
 
 _SCRIPT_PROBE = """
 import importlib.util, sys

@@ -56,6 +56,7 @@ from piccolo_tpu_torch.harness.localize import (
 )
 from piccolo_tpu_torch.serve import LocalizeService
 from piccolo_tpu_torch.testing import make_room, render_at
+from piccolo_tpu_torch.tracking import track_kwargs
 from piccolo_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
@@ -259,7 +260,7 @@ def test_served_answer_equals_run_fused_on_card_prep(scene, mode,
         "num_bins_128", "track_fast_prep_off"])
 def test_card_prep_gate(scene, kw, card):
     """The gate on the config, and what a served tracked frame's counters
-    say ran."""
+    say ran: its prep, and its descent's steps."""
     assert _card_prep_ok(make_config(**{**_CFG, **kw}),
                          "mni" in kw["dataset"]) is card
     if "mni" in kw["dataset"]:
@@ -277,7 +278,10 @@ def test_card_prep_gate(scene, kw, card):
     (root,) = [r for r in recs if r.name == "service.request"]
     counts = {r.name: r.n for r in recs if r.n is not None
               and r.requests == root.requests}
-    assert counts == {"service.prep_card" if card else "service.prep_host": 1}
+    # the frame's descent on the CPU: the autograd step, its steps counted
+    steps = track_kwargs(svc.cfg)["num_iter"]
+    assert counts == {"service.prep_card" if card else "service.prep_host": 1,
+                      "descent.steps_plain": steps}
     assert sum(r.name == "service.prep" for r in recs) == 1
 
 
