@@ -3166,7 +3166,8 @@ def phase_omni_batch(o, omni, dev):
     imgs, ts, ys = [], [], []
     for p in sorted(glob.glob(omniscenes_pano_glob(omni["tree"]))):
         u8 = resize_ablate_omniscenes(cfg, imread_rgb(p))
-        img, _ = T._prep_frame(u8, cdf, None, room["rgb"], dev)
+        img, _ = T.colour_frame(T.upload_frame(u8, dev), cdf, None,
+                                room["rgb"])
         imgs.append(img)
         gt_t, gt_r = obtain_gt_omniscenes(p)
         ts.append(np.asarray(gt_t, np.float32).reshape(3)

@@ -64,7 +64,7 @@ from .. import data as data_mod
 from ..color import color_match, color_mod
 from ..config import cfg_get
 from ..convert import cloud_from_numpy
-from ..device import as_tensor, resolve_device
+from ..device import resolve_device
 from ..init.candidates import generate_rot_points, generate_trans_points
 from ..init.refine import SUPPORTED_CRITERIA, check_criterion, make_input
 from ..ops.pano import render_pano
@@ -331,27 +331,23 @@ def prepare_images_card(cfg, img_u8, room: Dict, omni: bool):
     """The per-query prep of either dataset on the room's device, where
     :func:`_card_prep_ok` admits the config (``omni``: OmniScenes'): the
     uint8 panorama (numpy, or a tensor on the device) is copied there once
-    and converted to f32; OmniScenes then runs ``match_color`` with the
-    uint8 requantisation and ``sharpen_color`` (``tracking.colour_frame``),
-    Stanford sharpens its init image only.  The room holds
-    :func:`_room_colour_state`'s state.  On the CPU the histogram kernels
-    run their plain versions.
+    and converted to f32 (``tracking.upload_frame``); OmniScenes then runs
+    ``match_color`` with the uint8 requantisation and ``sharpen_color``
+    (``tracking.colour_frame``), Stanford sharpens its init image only.
+    The room holds :func:`_room_colour_state`'s state.  On the CPU the
+    histogram kernels run their plain versions.
 
     Returns :func:`prepare_stanford_images`' tuple, its images and a
     rebound ``rgb_used`` as tensors on the room's device (OmniScenes' init
     and main image are one tensor); ``prep_timed`` is the host time of the
-    main image's conversion.  Equal to the host prep within ``color.py``'s
-    documented deltas (image-side quantiles in f32, the sharpen LUT's exact
-    integer floor), bit for bit without a colour mode.  It reads nothing
-    back to the host."""
-    from ..tracking import colour_frame
+    main image's upload and conversion.  Equal to the host prep within
+    ``color.py``'s documented deltas (image-side quantiles in f32, the
+    sharpen LUT's exact integer floor), bit for bit without a colour mode.
+    It reads nothing back to the host."""
+    from ..tracking import colour_frame, upload_frame
 
-    dev = room["device"]
-    u8 = as_tensor(img_u8, dev, torch.uint8)
     rt0 = time.time()
-    # a true division, as numpy's: the card divides by a Python scalar as
-    # a multiply by its reciprocal, an ulp off at 126 of the 256 levels
-    img = u8.to(torch.float32) / torch.full((), 255.0, device=dev)
+    img = upload_frame(img_u8, room["device"])
     prep_timed = time.time() - rt0
     cdf = room.get("cdf") if omni else None
     sharpen = room.get("sharpen")

@@ -28,9 +28,9 @@ every room (``probe.py``).
 
 While a ``torch.profiler`` session records, each request is a
 ``service.request`` span with its own id, and its prep, compute-lock wait,
-solve and result copy (and a tracked frame's queue wait and batch) are
-spans under it (``utils.profiling``); the reply's ``route`` names the
-stages' route and ``/healthz`` the plan bytes each card holds.
+solve and result copy (a tracked frame's queue wait and batch in place of
+the solve) are spans under it (``utils.profiling``); the reply's ``route``
+names the stages' route and ``/healthz`` the plan bytes each card holds.
 
 The service runs on the card (``device="cuda"``, the default) unless the
 caller passes ``device="cpu"``.  Two config keys use more devices, and
@@ -566,31 +566,13 @@ class LocalizeService:
         dev = self.device if cache is None else cache["device"]
         return dict(device=dev, **track_kwargs(self.cfg))
 
-    def _track_room(self, prep, cache, device_index: int, prev_pose) -> Dict:
-        """One warm-started single-start descent (``tracking.track_step``)
-        instead of the full pipeline; the same lock and one-copy discipline
-        as :meth:`_compute_room`."""
-        from .tracking import track_step_fetched
-
-        t_prev, ypr_prev = self._parse_prev_pose(prev_pose)
-        with self._holding(device_index):
-            _, img_main, rgb_used, prep_timed = self._finish(prep, cache)
-            with profiling.span("service.solve"):
-                t0 = time.time()
-                with profiling.span("track.upload"):
-                    img = as_tensor(img_main, cache["device"], torch.float32)
-                t, ypr, rot, loss = track_step_fetched(
-                    img, cache["xyz"], rgb_used, t_prev, ypr_prev,
-                    cache["lo"], cache["hi"], cache["mask"],
-                    **self._track_kw(cache))
-                elapsed = time.time() - t0 + prep_timed
-        return dict(t=t, rot=rot, loss=loss, winner=0,
-                    cand_loss=np.asarray([loss], np.float32), ypr=ypr,
-                    time_s=elapsed, tracked=True)
-
     def _track_room_maybe_batched(self, prep, cache, device_index: int,
                                   prev_pose) -> Dict:
-        """``track_batch = True``: tracked requests waiting on the same
+        """A tracked request: one warm-started single-start descent
+        (``tracking.track_step``) instead of the full pipeline, through
+        :meth:`_run_track_batch` under the compute lock.
+
+        ``track_batch = True``: tracked requests waiting on the same
         device for the same room and frame shape are drained as ONE batch
         (``tracking.track_steps_batched``: one K-start descent, one graph on
         the card) by whichever request next takes the compute lock, which
@@ -599,21 +581,24 @@ class LocalizeService:
         A batch forms only from requests already queued, so serial traffic
         runs the single-stream path with no added latency.  Batches pad up
         to a power of two (repeating the last stream), so concurrent load
-        meets a handful of descent shapes, not one per K.  A request whose
-        colours were rebound (``sharpen_color``) runs alone: its cloud
-        colours are its own, and the batch shares the room's."""
-        if (not cfg_get(self.cfg, "track_batch", False)
-                or cfg_get(self.cfg, "sharpen_color", False)):
-            return self._track_room(prep, cache, device_index, prev_pose)
+        meets a handful of descent shapes, not one per K.  A request runs
+        alone, never queued, without ``track_batch`` or where its colours
+        are rebound (``sharpen_color``): its cloud colours are its own, and
+        the batch shares the room's."""
         t_prev, ypr_prev = self._parse_prev_pose(prev_pose)
         entry = dict(prep=prep, t=t_prev, ypr=ypr_prev,
                      key=(id(cache), tuple(prep.img.shape)),
                      event=threading.Event(), out=None,
-                     requests=profiling.current_requests())
+                     requests=profiling.current_requests(),
+                     queued_ns=time.time_ns())
+        if (not cfg_get(self.cfg, "track_batch", False)
+                or cfg_get(self.cfg, "sharpen_color", False)):
+            with self._holding(device_index):
+                self._run_track_batch([entry], cache)
+            return entry["out"]
         qlock = self._track_qlocks[device_index]
         queue = self._track_queues[device_index]
         with qlock:
-            entry["queued_ns"] = time.time_ns()
             queue.append(entry)
         with self._holding(device_index):
             if not entry["event"].is_set():
@@ -640,20 +625,21 @@ class LocalizeService:
         return out
 
     def _run_track_batch(self, batch, cache) -> None:
-        """Run one drained batch of tracked requests (compute lock held):
-        finish each request's prep, then one descent, and hand each
-        request its answer, with ``"batched": K`` when K > 1.  While
-        tracing, the batch is a ``track.batch`` span over its requests'
-        ids, each request's wait from its queueing to the batch's start a
-        ``track.queue_wait`` record, and its prep its own ``service.prep``
-        span."""
-        from .tracking import track_step_fetched, track_steps_batched
+        """Run one batch of tracked requests (compute lock held): finish
+        each request's prep, then one descent, and hand each request its
+        answer, with ``"batched": K`` when K > 1.  A lone request descends
+        on its own prep's cloud colours, a batch on the room's.  The
+        reply's ``time_s`` is the descent's from the end of the preps plus
+        the request's own ``prep_timed``.  While tracing, the batch is a
+        ``track.batch`` span over its requests' ids, each request's wait
+        from its queueing to the batch's start a ``track.queue_wait``
+        record, and its prep its own ``service.prep`` span."""
+        from . import tracking
 
         bucket = 1
         while bucket < len(batch):
             bucket *= 2
         try:
-            t0 = time.time()
             with profiling.span(
                     "track.batch", k=len(batch), bucket=bucket,
                     requests=tuple(r for e in batch for r in e["requests"])):
@@ -662,24 +648,26 @@ class LocalizeService:
                     profiling.record("track.queue_wait", e["queued_ns"],
                                      start, requests=e["requests"])
                 for e in batch:
-                    _, e["img"], _, e["prep_timed"] = self._finish(
+                    _, e["img"], e["rgb"], e["prep_timed"] = self._finish(
                         e["prep"], cache, requests=e["requests"])
+                t0 = time.time()
                 kw = self._track_kw(cache)
                 dev = cache["device"]
                 if len(batch) == 1:
                     e = batch[0]
                     with profiling.span("track.upload"):
                         img = as_tensor(e["img"], dev, torch.float32)
-                    results = [track_step_fetched(
-                        img, cache["xyz"], cache["rgb"], e["t"], e["ypr"],
+                    results = [tracking.track_step_fetched(
+                        img, cache["xyz"], e["rgb"], e["t"], e["ypr"],
                         cache["lo"], cache["hi"], cache["mask"], **kw)]
                 else:
+                    assert all(e["rgb"] is cache["rgb"] for e in batch)
                     rows = batch + [batch[-1]] * (bucket - len(batch))
                     with profiling.span("track.upload"):
                         imgs = torch.stack([as_tensor(e["img"], dev,
                                                       torch.float32)
                                             for e in rows])
-                    results = track_steps_batched(
+                    results = tracking.track_steps_batched(
                         imgs, cache["xyz"], cache["rgb"],
                         np.stack([e["t"] for e in rows]),
                         np.stack([e["ypr"] for e in rows]),

@@ -137,16 +137,19 @@ def _unpack_fetched(res: SolveResult):
 def track_step_fetched(img, xyz, rgb, prev_t, prev_ypr, lo, hi,
                        point_mask=None, **kw):
     """:func:`track_step` and the one-copy result: shared by
-    :class:`Tracker`, the serving track path and the CLI loop."""
+    :class:`Tracker`, :func:`track_step_prepped_fetched`, the serving track
+    path and the CLI loop."""
     return _unpack_fetched(track_step(img, xyz, rgb, prev_t, prev_ypr, lo,
                                       hi, point_mask, **kw))
 
 
-def _prep_frame(img_u8, cdf, sharpen, rgb, dev):
-    """uint8 frame -> f32 on ``dev`` -> :func:`colour_frame`; returns
-    (img, rgb)."""
-    img = as_tensor(img_u8, dev, torch.uint8).to(torch.float32) / 255.0
-    return colour_frame(img, cdf, sharpen, rgb)
+def upload_frame(img_u8, dev):
+    """(H, W, 3) uint8 frame (numpy, or a tensor on the device) -> f32 in
+    [0, 1] on ``dev``, with numpy's bits."""
+    u8 = as_tensor(img_u8, dev, torch.uint8)
+    # a true division, as numpy's: the card divides by a Python scalar as
+    # a multiply by its reciprocal, an ulp off at 126 of the 256 levels
+    return u8.to(torch.float32) / torch.full((), 255.0, device=dev)
 
 
 def colour_frame(img, cdf, sharpen, rgb):
@@ -194,19 +197,11 @@ def track_step_prepped_fetched(img_u8, xyz, rgb, prev_t, prev_ypr, lo, hi,
     """
     dev = resolve_device(device)
     _use_exec_cache(exec_cache_dir, dev)
-    img, rgb = _prep_frame(img_u8, cdf, sharpen,
-                           as_tensor(rgb, dev, torch.float32), dev)
-    with span("localize.stage3_descent"):
-        res = descend(
-            img, xyz, rgb,
-            np.asarray(prev_t, np.float32).reshape(1, 3),
-            np.asarray(prev_ypr, np.float32).reshape(1, 3),
-            lo, hi, point_mask,
-            num_iter=num_iter, lr=lr, patience=patience, factor=factor,
-            masked=point_mask is not None, table_dtype=table_dtype,
-            wrap=wrap, device=dev,
-        )
-    return _unpack_fetched(res)
+    img, rgb = colour_frame(upload_frame(img_u8, dev), cdf, sharpen, rgb)
+    return track_step_fetched(
+        img, xyz, rgb, prev_t, prev_ypr, lo, hi, point_mask,
+        num_iter=num_iter, lr=lr, patience=patience, factor=factor,
+        table_dtype=table_dtype, wrap=wrap, device=dev)
 
 
 def track_steps_batched(imgs, xyz, rgb, prev_ts, prev_yprs, lo, hi,

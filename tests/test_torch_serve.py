@@ -14,8 +14,9 @@ on the CPU.
     batched modes (the last one probe over every room, the per-room probe
     under colour prep); the per-room probe ranks rooms as the JAX
     package's does.
-  * Tracked requests (``prev_pose``), ``recover_above``, and ``track_batch``
-    draining concurrent tracked requests into one batch.
+  * Tracked requests (``prev_pose``), ``recover_above``, ``track_batch``
+    draining concurrent tracked requests into one batch, and a request
+    under ``sharpen_color`` descending alone on its rebound colours.
   * Under a profiler session: a served query's spans under one request id
     and its ``route``, a batch's spans over both of its requests' ids, and
     the stage-1 pair counters with a whole plan and with plans off.
@@ -424,6 +425,38 @@ def test_tracking_path(scene):
     assert "batched" not in got
     for k in ("t", "rot", "ypr", "cand_loss"):
         np.testing.assert_array_equal(got[k], out1[k])
+
+
+@pytest.mark.parametrize("track_batch", [False, True])
+def test_tracked_request_under_sharpen_color(scene, track_batch):
+    """A tracked request under ``sharpen_color`` runs alone, with
+    ``track_batch`` off and on, on its own rebound cloud colours: bit for
+    bit ``tracking.track_step_fetched`` on ``svc._prepare``'s main image
+    and ``rgb_used``, with no ``"batched"``."""
+    from piccolo_tpu_torch.tracking import track_step_fetched
+
+    xyz, rgb, _, gt_t = scene
+    svc = _svc(sharpen_color=True, track_batch=track_batch,
+               track_max_batch=4)
+    svc.load_room(xyz, rgb, name="box")
+    frame = (render_at(xyz, rgb, gt_t + np.float32([0.03, -0.02, 0.01]),
+                       np.float32([0.92, 0, 0]), (128, 256),
+                       device="cpu").numpy() * 255).astype(np.uint8)
+    prev = {"t": gt_t.tolist(), "ypr": [0.9, 0.0, 0.0]}
+    out = svc.localize(frame, prev_pose=prev)
+    assert out["tracked"] and "batched" not in out
+    cache = svc._rooms["box"][0]
+    _, main, rgb_used, _ = svc._prepare(frame, cache)
+    assert rgb_used is not cache["rgb"]
+    t0, y0 = svc._parse_prev_pose(prev)
+    t, ypr, rot, loss = track_step_fetched(
+        main, cache["xyz"], rgb_used, t0, y0, cache["lo"], cache["hi"],
+        cache["mask"], **svc._track_kw(cache))
+    np.testing.assert_array_equal(out["t"], t)
+    np.testing.assert_array_equal(out["ypr"], ypr)
+    np.testing.assert_array_equal(out["rot"], rot)
+    assert out["loss"] == loss
+    assert not svc._track_queues[0]
 
 
 def test_track_batch_drains_concurrent_requests(scene):

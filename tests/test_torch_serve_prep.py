@@ -33,7 +33,9 @@ the same panorama and room, at 2048x1024.
 Marked ``cuda`` (skips without a card; on the card run with ``--noconftest``:
 only the JAX comparison imports JAX, inside its test): the device prep of a 2048x1024 frame on the card
 equals the same function on the CPU within the same deltas, and launches
-no host synchronisation between the upload and the solve.
+no host synchronisation between the upload and the solve; and every uint8
+level converts there as numpy converts it, through ``tracking.upload_frame``
+and through the device prep's main image (also run on the CPU).
 """
 
 import threading
@@ -56,7 +58,7 @@ from piccolo_tpu_torch.harness.localize import (
 )
 from piccolo_tpu_torch.serve import LocalizeService
 from piccolo_tpu_torch.testing import make_room, render_at
-from piccolo_tpu_torch.tracking import track_kwargs
+from piccolo_tpu_torch.tracking import track_kwargs, upload_frame
 from piccolo_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
@@ -428,3 +430,24 @@ def test_card_prep_on_the_card_equals_the_cpu(mode):
         assert np.all(got[k][:16, :64] == 0.0)
     if "sharpen" in mode:
         _within_a_level(got[2], want[2], 0.01)
+
+
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_frame_upload_converts_as_numpy(device):
+    """All 256 uint8 levels through ``tracking.upload_frame`` and through
+    the main image of ``prepare_images_card`` without a colour mode: the
+    bits of numpy's ``u8.astype(np.float32) / 255``.  On the card a
+    division by the Python scalar 255 is a multiply by its reciprocal, an
+    ulp off at 126 of the levels; on the CPU both give numpy's bits."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
+    dev = torch.device(device)
+    u8 = np.repeat(np.arange(256, dtype=np.uint8).reshape(16, 16, 1), 3, 2)
+    want = (u8.astype(np.float32) / 255).view(np.uint32)
+    got = upload_frame(u8, dev).cpu().numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want)
+    cfg = make_config(**{**_CFG, **MODES["none"]})
+    _, main, _, _ = prepare_images_card(cfg, u8, dict(device=dev, rgb=None),
+                                        False)
+    np.testing.assert_array_equal(main.cpu().numpy().view(np.uint32), want)
