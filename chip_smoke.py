@@ -74,13 +74,16 @@ Phases (any failure exits non-zero; each prints its seconds):
  14. the kernels at the OmniScenes shapes against their plain versions: the
      f32 group sums on every group of that plan, the block histogram on
      the first frame's 50 candidates x 16 blocks of 256x512 from the live
-     splat and from the HistPlan; then one query's descent on the bf16
+     splat and from the HistPlan, the splat pair (kernels/splat_hist.py)
+     on the same 50 candidates, the counts bit-exact; then one query's
+     descent on the bf16
      table (auto) against float32: winner poses within 0.01 m, both
      localized;
  15. two CLI runs of the shipped configs/omniscenes.ini: fused (through the
      ladder, phase 13's plan whole on every query) and fused = False;
      accuracy >= 0.75 under 0.1 m / 5 deg each, the same winners within
-     1e-3 m; launches counted over the fused run;
+     1e-3 m; launches counted over the fused run (the splat pair once a
+     query in both: match_color keeps stage 2 on the live splat);
  16. one OmniScenes query under torch.profiler;
  17. serving (between phases 10 and 12): configs/stanford.ini in
      LocalizeService on the CLI's room, warmed at load, behind serve_forever
@@ -165,8 +168,8 @@ Phases (any failure exits non-zero; each prints its seconds):
      of each trace's counts);
  28. the executable cache (after phase 21): two fresh CLI processes in turn
      under configs/stanford.ini with one exec_cache_dir, empty before the
-     first: the first builds the four kernel libraries and the JPEG codec,
-     the second loads all five and gives the first's rows bit for bit but
+     first: the first builds the five kernel libraries and the JPEG codec,
+     the second loads all six and gives the first's rows bit for bit but
      for time; each one's seconds from its start to its first answer;
  29. init_distributed: two processes on the card join one group (backend
      nccl) over a localhost coordinator and run the halves of phase 28's
@@ -197,27 +200,28 @@ Phases (any failure exits non-zero; each prints its seconds):
      (bf16 on the card) and its ray-cast oracle with sharpen (the f32
      plan's re-bake fused); each arm must localize every query under the
      Stanford criterion, as the JAX package's records do, and launch one f32
-     slab kernel a plan group a query and one block histogram a query
-     (neither compact nor q8); both kernels are held against their plain
-     versions at the arm's shapes.  Each summary is printed on a line.
+     slab kernel a plan group a query and one stage-2 count a query (a
+     block histogram of a HistPlan's planes, or the splat pair of the live
+     splat; neither compact nor q8); the kernels are held against their
+     plain versions at the arm's shapes.  Each summary is printed on a line.
  37-40. the measurement scripts of scripts/ (after phase 36) at a reduced
      depth, their mains and modes in this process (37-39) or in two fresh
      processes (40), each with the kernel counts set to 0 just before it
      and read just after:
  37. measure_tracking_cuda.py --frames 20 --teleport (1024x512, 60,000
      points): recovery at frame 10 alone, median t_err under 10 mm, no
-     descent graph captured or recaptured after frame 2, one block
-     histogram a full query (seed and recovery) and none a tracked frame;
-     the block histogram held against its plain version on the seed's
-     stage-2 call;
+     descent graph captured or recaptured after frame 2, one stage-2
+     count a full query (seed and recovery; the block histogram of a
+     HistPlan or the splat pair) and none a tracked frame; that kernel held
+     against its plain version on the seed's stage-2 call;
  38. measure_serving_cuda.py's in-process modes, its executable cache in a
      directory of the run: sustained at 10 queries (last5 median at most
      1.5x first5), room-auto with the probe off over its four rooms x 3
      queries (12/12, each room's route printed), track-streams at 2
      streams x 4 frames with track_batch (median t_err under 0.02 m); the
-     f32 group sums and the block histogram held against their plain
+     f32 group sums and stage 2's kernel held against their plain
      versions on sustained's first stage-1 and stage-2 calls;
- 39. measure_plan_lifecycle_cuda.py at 60,000 points, 1024x512, 3 queries:
+ 39. measure_plan_lifecycle_cuda.py at 60,000 points, 1024x512, 10 queries:
      --sync (the f32 plan resident from q0, one f32 launch a group a query)
      and the background default (the plan resident by the last query, the
      f32 kernel launched once it is); the f32 group sums held against
@@ -528,6 +532,79 @@ def _recorded_bh_row(name, path, ids, mask, num_bins, launches, n_q):
         f"counted {stats['counted_share']:.3f} of entries, "
         f"{stats['counted_per_run']:.2f} a run")
     return row
+
+
+# stage 2's splat pair (benchmark/roofline.py's count): a projection and a
+# splat, 74 operations a point and candidate; a pixel's bin test and count, 3
+SPLAT_POINT_OPS, SPLAT_PIXEL_OPS = 74, 3
+# sleep kernels that cover the host's launches of one stage-2 call: ~10 ms
+# for the pair's 3 a chunk, ~60 ms for the plain version's ~100 a chunk
+SPLAT_LEAD_CYCLES, SPLAT_PLAIN_LEAD_CYCLES = 20_000_000, 120_000_000
+
+
+def _recorded_splat_row(name, path, args, launches, n_q):
+    """A kernels row of stage 2's splat pair on a recorded call's arguments
+    (``splat_block_counts``): block counts bit-exact against the plain
+    version, timed beside it, and the bound: the cloud, its bins and mask
+    and the query's pixel mask read once and the counts written once, or
+    the operations of a splat a point and candidate and a count a pixel and
+    candidate, the larger."""
+    from piccolo_tpu_torch.kernels.splat_hist import (
+        splat_block_counts,
+        splat_block_counts_plain,
+    )
+
+    got = splat_block_counts(*args)
+    want = splat_block_counts_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: splat block counts differ from the "
+                             f"plain version at {tuple(got.shape)}")
+    xyz, trans, H, W, sh, sw, chunk = (args[0], args[2], *args[6:])
+    n, k = xyz.shape[0], trans.shape[0]
+    bound_ms, bound_by = _bound(
+        n * 17 + H * W + k * sh * sw * 512 * 4,
+        k * (n * SPLAT_POINT_OPS + H * W * SPLAT_PIXEL_OPS))
+    row = dict(
+        name=name, route="cuda",
+        source="piccolo_tpu_torch/kernels/csrc/splat_hist.cu",
+        replaces="none: the JAX package's splat is an XLA scatter-min",
+        path=path, launches=launches, launches_per_query=launches / n_q,
+        max_abs_err=float((got - want).abs().max()),
+        ms=cuda_ms(lambda: splat_block_counts(*args),
+                   lead=SPLAT_LEAD_CYCLES),
+        plain_ms=cuda_ms(lambda: splat_block_counts_plain(*args), reps=5,
+                         lead=SPLAT_PLAIN_LEAD_CYCLES),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    log(f"{name}: {k} candidates x {n} points at {H}x{W} in {sh} x {sw} "
+        f"blocks, chunks of {chunk}: bit-exact; {row['ms']:.4f} ms (plain "
+        f"{row['plain_ms']:.4f}, bound {bound_ms:.4f} by {bound_by})")
+    return row
+
+
+def _stage2_rows(key, path, stage2, splats, counts, n_q):
+    """The kernels rows of the stage-2 calls a run recorded: the block
+    histogram's on its first recorded call (a HistPlan's planes), the splat
+    pair's on its first (the live splat)."""
+    rows = []
+    if stage2:
+        (_, _, nbins), (ids, mask) = next(iter(stage2.items()))
+        rows.append(_recorded_bh_row(f"block_histogram.{key}", path, ids,
+                                     mask, nbins, counts["block_histogram"],
+                                     n_q))
+    if splats:
+        rows.append(_recorded_splat_row(
+            f"splat_block_counts.{key}", path, next(iter(splats.values())),
+            counts["splat_block_counts"], n_q))
+    return rows
+
+
+def _stage2_calls(counts):
+    """Stage 2's calls in a run's wrapper counts: a block histogram of a
+    HistPlan's planes or one live splat through the kernel pair a query
+    (the configs these runs use prepare their colours without the block
+    histogram)."""
+    return counts["block_histogram"] + counts["splat_block_counts"]
 
 
 # per real sample: 4 weights (6 ops), lerp (24), black test, distance and
@@ -1145,7 +1222,9 @@ def profile_query(label, run, median_s):
     from torch.profiler import ProfilerActivity, profile
 
     own = {"slab_sums_kernel": "localize.stage1_loss_table",
-           "block_histogram_kernel": "localize.stage2_hist_trim"}
+           "block_histogram_kernel": "localize.stage2_hist_trim",
+           "splat_keys_kernel": "localize.stage2_hist_trim",
+           "dilate_block_hist_kernel": "localize.stage2_hist_trim"}
     launch_calls = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                     "cuLaunchKernel", "cuLaunchKernelEx")
     graph_calls = ("cudaGraphLaunch", "cuGraphLaunch")
@@ -1259,13 +1338,15 @@ def phase_cli(cli, dev):
     from piccolo_tpu_torch.kernels import slab_sampling as slab
     from piccolo_tpu_torch.kernels.block_histogram import block_histogram
     from piccolo_tpu_torch.kernels.histogram import masked_histogram_counts
+    from piccolo_tpu_torch.kernels.splat_hist import splat_block_counts
     from piccolo_tpu_torch.main import main as cli_main
 
     n_q, tree, groups, est = CLI_QUERIES, cli["tree"], cli["groups"], cli["est"]
     R = int(cli["grids"].rot.shape[0])
     kernels = {fn.__name__: fn for fn in (
         slab.slab_group_sums_f32, slab.slab_group_sums_compact,
-        slab.slab_group_sums_q8, block_histogram, masked_histogram_counts)}
+        slab.slab_group_sums_q8, block_histogram, masked_histogram_counts,
+        splat_block_counts)}
     builds = []
     real_build = slab.build_grid_plan
 
@@ -1350,10 +1431,12 @@ def phase_cli(cli, dev):
             if not (t_err < 0.05 and acc >= 0.75):
                 raise AssertionError(f"run {run}: median t_err {t_err} m, "
                                      f"accuracy {acc}")
-            if launches["block_histogram"] != n_q:
-                raise AssertionError(f"run {run}: block_histogram launched "
-                                     f"{launches['block_histogram']} times "
-                                     f"for {n_q} queries")
+            if _stage2_calls(launches) != n_q:
+                raise AssertionError(f"run {run}: stage 2 ran "
+                                     f"{launches['block_histogram']} block "
+                                     "histograms and "
+                                     f"{launches['splat_block_counts']} "
+                                     f"live splats for {n_q} queries")
             want_groups = groups * n_q
             if run == "G":
                 # the room's first query runs the gather engine while the
@@ -1415,7 +1498,8 @@ def phase_cli(cli, dev):
         "slab_group_sums_compact":
             (out["B"]["slab_group_sums_compact"], n_q, "B"),
         "slab_group_sums_q8": (out["C"]["slab_group_sums_q8"], n_q, "C"),
-        "block_histogram": (out["A"]["block_histogram"], n_q, "A"),
+        # run D's HistPlan planes; run A's live splat runs the splat pair
+        "block_histogram": (out["D"]["block_histogram"], n_q, "D"),
     }
 
 
@@ -1544,8 +1628,8 @@ def _child_env():
 
 def phase_exec_cache(tree, dev):
     """Two fresh CLI processes in turn under configs/stanford.ini with one
-    exec_cache_dir, empty before the first: the first builds the four
-    kernel libraries and the JPEG codec, the second loads all five (hits)
+    exec_cache_dir, empty before the first: the first builds the five
+    kernel libraries and the JPEG codec, the second loads all six (hits)
     and gives the first's rows bit for bit but for time.  Returns the
     first's rows (the one-process sweep of phase 29)."""
     base = os.path.dirname(tree)
@@ -1569,7 +1653,7 @@ def phase_exec_cache(tree, dev):
         log(f"exec cache process {i}: {line}; first answer {first:.2f} s "
             f"after the process started (its query {rows[0][9]} s), wall "
             f"{wall:.2f} s for {len(rows)} queries")
-    n_libs = 5 if dev.type == "cuda" else 1  # the CPU builds only the codec
+    n_libs = 6 if dev.type == "cuda" else 1  # the CPU builds only the codec
     if f"0 hit(s), {n_libs} built" not in runs[0]["line"]:
         raise AssertionError(f"the first process did not build: {runs[0]}")
     if f"{n_libs} hit(s), 0 built, 0 rebuilt" not in runs[1]["line"]:
@@ -1910,7 +1994,10 @@ def phase_omni_kernels(o, dev):
     1e-5), group 0 timed against its recounted bound; the block histogram
     on the first frame's 50 stage-2 candidates x 16 blocks of 256x512
     pixels from the live splat (bit-exact), timed against its bound and
-    torch.bincount, and again from the HistPlan's planes.  Then the bf16
+    torch.bincount, and again from the HistPlan's planes; the splat pair
+    that now counts the live splat's blocks on the main path, on the same
+    50 candidates (bit-exact), timed against its bound and the plain
+    version.  Then the bf16
     descent table (auto at 2048x1024) against float32 on one query: winner
     poses within 0.01 m and both within 0.1 m of the truth."""
     from piccolo_tpu_torch import localize_query
@@ -1926,6 +2013,7 @@ def phase_omni_kernels(o, dev):
         block_histogram,
         block_histogram_plain,
     )
+    from piccolo_tpu_torch.kernels.splat_hist import bin_rows
     from piccolo_tpu_torch.ops.sampling import resolve_descent_table
 
     plan, room = o["plan"], o["room"]
@@ -1983,11 +2071,7 @@ def phase_omni_kernels(o, dev):
                       for c in range(0, k1, 4)])
 
     def rows_of(pbin):
-        valid = (pbin >= 0) & (pbin < _NB) & q.pix_ok
-        ids = q.block_layout(pbin.clamp(0, _NB - 1).to(torch.int32))
-        msk = q.block_layout(valid.to(torch.float32))
-        return (ids.reshape(-1, ids.shape[-1]).contiguous(),
-                msk.reshape(-1, msk.shape[-1]).contiguous())
+        return bin_rows(pbin, q.pix_ok, *q.grid)
 
     ids, msk = rows_of(pbin)
     del pbin
@@ -2037,6 +2121,10 @@ def phase_omni_kernels(o, dev):
     del ids, msk, got, want
     o["hplan"] = None
     torch.cuda.empty_cache()
+    splat_row = _recorded_splat_row(
+        "splat_block_counts.omniscenes", f"stage 2 of {k1} candidates",
+        (room["xyz"], rgb_bins, t1, r1, room["mask"], q.pix_ok, H, W, 4, 4,
+         4), 0, 1)
 
     # the bf16 descent table (auto at 2048x1024) against float32
     gt_t, _ = obtain_gt_omniscenes(o["gt"])
@@ -2063,7 +2151,7 @@ def phase_omni_kernels(o, dev):
     if not (dt < 0.01 and max(errs.values()) < 0.1):
         raise AssertionError(f"bf16 and f32 descent tables disagree: {res}, "
                              f"t_err {errs}")
-    return [slab_row, bh_row]
+    return [slab_row, bh_row, splat_row]
 
 
 def _omni_csv(log_dir):
@@ -2081,11 +2169,12 @@ def phase_omni_cli(omni, dev, layout):
     kernel."""
     from piccolo_tpu_torch.kernels import slab_sampling as slab
     from piccolo_tpu_torch.kernels.block_histogram import block_histogram
+    from piccolo_tpu_torch.kernels.splat_hist import splat_block_counts
     from piccolo_tpu_torch.main import main as cli_main
 
     kernels = {fn.__name__: fn for fn in (
         slab.slab_group_sums_f32, slab.slab_group_sums_compact,
-        slab.slab_group_sums_q8, block_histogram)}
+        slab.slab_group_sums_q8, block_histogram, splat_block_counts)}
     n_q, out, winners = OMNI_QUERIES, {}, {}
     for run, extra in (("fused", ""), ("staged", ",fused=False")):
         for fn in kernels.values():
@@ -2120,10 +2209,15 @@ def phase_omni_cli(omni, dev, layout):
                                  f"{len(routes)} routes")
         if not acc >= 0.75:
             raise AssertionError(f"omniscenes {run}: accuracy {acc}")
-        if launches["block_histogram"] != n_q:
-            raise AssertionError(f"omniscenes {run}: block_histogram launched "
-                                 f"{launches['block_histogram']} times for "
-                                 f"{n_q} queries")
+        # match_color refuses a HistPlan: every query's stage 2 is the
+        # live splat, the kernel pair once a query
+        if (launches["splat_block_counts"], launches["block_histogram"]) != (
+                n_q, 0):
+            raise AssertionError(f"omniscenes {run}: the splat pair ran "
+                                 f"{launches['splat_block_counts']} times and "
+                                 f"the block histogram "
+                                 f"{launches['block_histogram']} for {n_q} "
+                                 "queries")
         if run == "fused" and not all(
                 r_.startswith(f"stage 1 {layout} slab plan,")
                 for r_ in routes):
@@ -2288,11 +2382,13 @@ def phase_omni_tracking(omni, dev, fused):
     from piccolo_tpu_torch.kernels import slab_sampling as slab
     from piccolo_tpu_torch.kernels.block_histogram import block_histogram
     from piccolo_tpu_torch.kernels.histogram import masked_histogram_counts
+    from piccolo_tpu_torch.kernels.splat_hist import splat_block_counts
     from piccolo_tpu_torch.main import main as cli_main
 
     kernels = {fn.__name__: fn for fn in (
         slab.slab_group_sums_f32, slab.slab_group_sums_compact,
-        slab.slab_group_sums_q8, block_histogram, masked_histogram_counts)}
+        slab.slab_group_sums_q8, block_histogram, masked_histogram_counts,
+        splat_block_counts)}
     # the launches made inside the tracked frames' colour prep, apart from
     # the seed frame's stage 2: each kernel's own count, read around the
     # two colour functions
@@ -2369,12 +2465,12 @@ def _omni_tracking_run(omni, dev, fused, cli_main, kernels, colour, run,
     if not (acc == 1.0 and (extra or dt < 1e-2)):
         raise AssertionError(f"omniscenes {run}: accuracy {acc}, poses "
                              f"{dt} m from the fused run's")
-    # stage 2 of the seed and color_match_device of each tracked frame;
-    # color_mod_device of each tracked frame
+    # the splat pair in the seed's stage 2; color_match_device of each
+    # tracked frame; color_mod_device of each tracked frame
     tracked = OMNI_QUERIES - 1
-    want_bh, want_mh = OMNI_QUERIES, (tracked if extra else 0)
-    if ((launches["block_histogram"], launches["masked_histogram_counts"])
-            != (want_bh, want_mh)
+    want_bh, want_mh = tracked, (tracked if extra else 0)
+    if ((launches["block_histogram"], launches["masked_histogram_counts"],
+         launches["splat_block_counts"]) != (want_bh, want_mh, 1)
             or colour != {"block_histogram": tracked,
                           "masked_histogram_counts": want_mh}):
         raise AssertionError(f"omniscenes {run}: launches {launches}, in "
@@ -2505,6 +2601,7 @@ def phase_serving(dev, tmp, cli_tree):
     from piccolo_tpu_torch.harness.localize import _run_fused
     from piccolo_tpu_torch.kernels import slab_sampling as slab
     from piccolo_tpu_torch.kernels.block_histogram import block_histogram
+    from piccolo_tpu_torch.kernels.splat_hist import splat_block_counts
     from piccolo_tpu_torch.serve import LocalizeService, serve_forever
     from piccolo_tpu_torch.testing import write_synth_stanford
     from piccolo_tpu_torch.tracking import ypr_from_rot
@@ -2536,7 +2633,7 @@ def phase_serving(dev, tmp, cli_tree):
     cfg = parse_ini(CONFIG)
     kernels = {fn.__name__: fn for fn in (
         slab.slab_group_sums_f32, slab.slab_group_sums_compact,
-        slab.slab_group_sums_q8, block_histogram)}
+        slab.slab_group_sums_q8, block_histogram, splat_block_counts)}
     svc = LocalizeService(cfg, max_rooms=2, device=dev)
     t0 = time.time()
     svc.load_room(xyz.astype(np.float32), rgb.astype(np.float32), name=pcd,
@@ -3263,10 +3360,12 @@ def _kernel_fns():
     from piccolo_tpu_torch.kernels import slab_sampling as slab
     from piccolo_tpu_torch.kernels.block_histogram import block_histogram
     from piccolo_tpu_torch.kernels.histogram import masked_histogram_counts
+    from piccolo_tpu_torch.kernels.splat_hist import splat_block_counts
 
     return {fn.__name__: fn for fn in (
         slab.slab_group_sums_f32, slab.slab_group_sums_compact,
-        slab.slab_group_sums_q8, block_histogram, masked_histogram_counts)}
+        slab.slab_group_sums_q8, block_histogram, masked_histogram_counts,
+        splat_block_counts)}
 
 
 def _zero_counts():
@@ -3313,13 +3412,16 @@ def _swap_is_a_tie(s_one, s_mesh, k1):
 
 
 @contextlib.contextmanager
-def _recording_stage2(calls):
-    """Stage 2's block histogram as the mesh queries call it, with each
-    call's inputs kept (the first of each card and shape): the kernel's
-    wrapper still runs and counts."""
+def _recording_stage2(calls, splats=None):
+    """Stage 2's block histogram as the queries call it on winner-bin
+    planes (a HistPlan's, the mesh's decoded keys), with each call's inputs
+    kept in ``calls`` (the first of each card and shape), and the live
+    splat's block counts (``refine.splat_block_counts``: the kernel pair on
+    one card) likewise in ``splats``, a dict keyed by card and shapes: the
+    wrappers still run and count."""
     from piccolo_tpu_torch.init import refine
 
-    real = refine.block_histogram
+    real, real_splat = refine.block_histogram, refine.splat_block_counts
 
     def recorded(ids, mask, num_bins=512):
         key = (ids.device.index, tuple(ids.shape), num_bins)
@@ -3327,11 +3429,21 @@ def _recording_stage2(calls):
             calls[key] = (ids.clone(), mask.clone())
         return real(ids, mask, num_bins)
 
+    def recorded_splat(*args):
+        xyz, trans = args[0], args[2]
+        key = (xyz.device.index, trans.shape[0]) + tuple(args[6:])
+        if splats is not None and key not in splats:
+            splats[key] = tuple(a.clone() if isinstance(a, torch.Tensor)
+                                else a for a in args)
+        return real_splat(*args)
+
     refine.block_histogram = recorded
+    refine.splat_block_counts = recorded_splat
     try:
         yield
     finally:
         refine.block_histogram = real
+        refine.splat_block_counts = real_splat
 
 
 def _mesh_kernel_rows(mesh, plans_m, img_init, stage2_calls, by_card,
@@ -4207,10 +4319,12 @@ def phase_eval_synth(dev):
     """python -m piccolo_tpu_torch.eval_synth's main at reduced depth, each
     arm with the wrapper counts set to 0 just before it and read just
     after: Stanford accuracy 1.0, one f32 slab launch a plan group a query
-    and one block histogram a query, no compact or q8 launch (a room that
-    fell back to the gather engine or a compact plan fails); then both
-    kernels held against their plain versions at the arm's shapes (room 0's
-    plan and first query, the first stage-2 call)."""
+    and one stage-2 count a query (a block histogram of a HistPlan's
+    planes, or the live splat's kernel pair under sharpen_color), no
+    compact or q8 launch (a room that fell back to the gather engine or a
+    compact plan fails); then the kernels held against their plain versions
+    at the arm's shapes (room 0's plan and first query, the first stage-2
+    call)."""
     from piccolo_tpu_torch import eval_synth
 
     real_run = eval_synth.run_query
@@ -4228,12 +4342,13 @@ def phase_eval_synth(dev):
             first.setdefault("q", q)
             return real_run(args, room, q, dev_)
 
-        stage2 = {}
+        stage2, splats = {}, {}
         out = io.StringIO()
         eval_synth.run_query = run_query
         try:
             _zero_counts()
-            with _recording_stage2(stage2), contextlib.redirect_stdout(out):
+            with (_recording_stage2(stage2, splats),
+                  contextlib.redirect_stdout(out)):
                 summary = eval_synth.main(EVAL_DEPTH + argv)
             counts = {k: v["total"] for k, v in _read_counts().items()}
         finally:
@@ -4254,9 +4369,10 @@ def phase_eval_synth(dev):
         if None in groups:
             raise AssertionError(f"{key}: a query ran without an f32 slab "
                                  f"plan (groups a query: {groups})")
-        want = dict(slab_group_sums_f32=sum(groups), block_histogram=n_q,
+        want = dict(slab_group_sums_f32=sum(groups), stage2=n_q,
                     slab_group_sums_compact=0, slab_group_sums_q8=0)
-        got = {k: counts[k] for k in want}
+        got = dict(counts, stage2=_stage2_calls(counts))
+        got = {k: got[k] for k in want}
         if got != want:
             raise AssertionError(f"{key}: launches {got}, expected {want}")
         room, q = first["room"], first["q"]
@@ -4265,10 +4381,8 @@ def phase_eval_synth(dev):
             f"slab_group_sums_f32.{key}", path, room.plan, q.img_init,
             q.rgb_used if q.refresh else None, got["slab_group_sums_f32"],
             n_q))
-        (_, _, nbins), (ids, mask) = next(iter(stage2.items()))
-        rows.append(_recorded_bh_row(f"block_histogram.{key}", path, ids,
-                                     mask, nbins, n_q, n_q))
-        del first, room, q, stage2
+        rows += _stage2_rows(key, path, stage2, splats, counts, n_q)
+        del first, room, q, stage2, splats
         torch.cuda.empty_cache()
     return rows
 
@@ -4291,7 +4405,11 @@ SERVING_DRIFT = 1.5  # last5 median against first5
 # (ops.sampling.AUTO_BF16_TABLE_BYTES_CARD) where the JAX package keeps
 # f32 up to 64 MB: 13.0 mm in the same three runs, the bf16 table's cost
 TRACK_STREAMS_T_ERR_M = {"float32": 0.01, "auto": 0.02}
-LIFECYCLE_ARGS = ["--points", "60000", "--height", "512", "--queries", "3"]
+# enough queries for the background build (a 4 GB f32 plan) to land before
+# the last: since the splat pair a query takes ~0.17 s, not ~0.5 s
+LIFECYCLE_QUERIES = 10
+LIFECYCLE_ARGS = ["--points", "60000", "--height", "512", "--queries",
+                  str(LIFECYCLE_QUERIES)]
 SHARDED_ARGS = ["--points", "60000", "--height", "512"]
 
 
@@ -4350,16 +4468,16 @@ def phase_tracking_script(dev):
     """scripts/measure_tracking_cuda.py's main at 20 frames with the
     teleport at frame 10 (1024x512, 60,000 points): recovery at frame 10
     and nowhere else, median t_err under 10 mm, no descent graph captured
-    or recaptured after frame 2, and one block histogram a full query (the
-    seed and the recovery; a tracked frame launches none); the block
-    histogram then held against its plain version on the seed's stage-2
-    call."""
+    or recaptured after frame 2, and one stage-2 count a full query (the
+    seed and the recovery: a block histogram of a HistPlan's planes or the
+    live splat's kernel pair; a tracked frame launches none); the kernel
+    then held against its plain version on the seed's stage-2 call."""
     from piccolo_tpu_torch import solver
 
     mod = _measure_script("measure_tracking_cuda")
     recaptures = solver.graph_stats()["recaptures"]
-    stage2 = {}
-    with _recording_stage2(stage2):
+    stage2, splats = {}, {}
+    with _recording_stage2(stage2, splats):
         summary, lines, counts = _counted(mod.main, TRACK_SCRIPT_ARGS)
     for ln in lines:
         log(f"tracking script: {ln}")
@@ -4376,23 +4494,23 @@ def phase_tracking_script(dev):
         raise AssertionError(f"tracking script: a descent graph was "
                              f"captured after frame 2: {graphs}")
     n_full = len(summary["full_pipeline_s"])
-    _expect_launches("tracking script", counts, dict(
-        block_histogram=n_full, slab_group_sums_f32=0,
+    _expect_launches("tracking script", dict(
+        counts, stage2=_stage2_calls(counts)), dict(
+        stage2=n_full, slab_group_sums_f32=0,
         slab_group_sums_compact=0, slab_group_sums_q8=0,
         masked_histogram_counts=0))
-    (_, _, nbins), (ids, mask) = next(iter(stage2.items()))
-    return [_recorded_bh_row(
-        "block_histogram.tracking_script",
-        f"measure_tracking_cuda {' '.join(TRACK_SCRIPT_ARGS)}: seed and "
-        "recovery queries", ids, mask, nbins, counts["block_histogram"],
-        n_full)]
+    return _stage2_rows(
+        "tracking_script", f"measure_tracking_cuda "
+        f"{' '.join(TRACK_SCRIPT_ARGS)}: seed and recovery queries", stage2,
+        splats, counts, n_full)
 
 
 def phase_serving_script(dev, tmp):
     """scripts/measure_serving_cuda.py's in-process modes on the card, its
     executable cache in a directory of the run: sustained at 10 queries
     (last5 median <= 1.5x first5; one f32 slab launch a plan group and one
-    block histogram a query, the warm query included), room-auto with the
+    stage-2 count a query, the warm query included: a block histogram of a
+    HistPlan's planes or the live splat's kernel pair), room-auto with the
     probe off over the four rooms x 3 queries (12/12, each room's route
     printed), track-streams at 2 streams x 4 frames with track_batch,
     under descent_table float32 and the default auto (median t_err under
@@ -4411,9 +4529,9 @@ def phase_serving_script(dev, tmp):
             del os.environ["PICCOLO_EXEC_CACHE"]
         else:
             os.environ["PICCOLO_EXEC_CACHE"] = env
-    stage1, stage2 = [], {}
+    stage1, stage2, splats = [], {}, {}
     try:
-        with _recording_stage1(stage1), _recording_stage2(stage2):
+        with _recording_stage1(stage1), _recording_stage2(stage2, splats):
             sus, lines, counts = _counted(mod.mode_sustained,
                                           SERVING_SUSTAINED, dev)
         for ln in lines:
@@ -4421,7 +4539,7 @@ def phase_serving_script(dev, tmp):
         if not sus["last5_median_s"] <= SERVING_DRIFT * sus["first5_median_s"]:
             raise AssertionError(f"serving script sustained drifted: {sus}")
         n_q = SERVING_SUSTAINED + 1  # and the warm query at load
-        if (counts["block_histogram"] != n_q
+        if (_stage2_calls(counts) != n_q
                 or counts["slab_group_sums_f32"] == 0
                 or counts["slab_group_sums_f32"] % n_q
                 or counts["slab_group_sums_compact"]
@@ -4435,7 +4553,7 @@ def phase_serving_script(dev, tmp):
         if (auto["correct"], auto["total"]) != (12, 12):
             raise AssertionError(f"serving script room-auto: "
                                  f"{auto['correct']}/{auto['total']}")
-        if not (counts["block_histogram"] > 0
+        if not (_stage2_calls(counts) > 0
                 and counts["slab_group_sums_f32"] > 0):
             raise AssertionError(f"serving script room-auto: launches "
                                  f"{counts}")
@@ -4450,8 +4568,9 @@ def phase_serving_script(dev, tmp):
                 raise AssertionError(f"{label}: {streams}")
             # the warm query and the streams' two seeds: full queries; the
             # tracked frames launch none
-            _expect_launches(label, counts, dict(
-                block_histogram=3, masked_histogram_counts=0))
+            _expect_launches(label, dict(
+                counts, stage2=_stage2_calls(counts)), dict(
+                stage2=3, masked_histogram_counts=0))
     finally:
         mod._CFG.pop("descent_table", None)
         _build.use_store(store)
@@ -4461,16 +4580,14 @@ def phase_serving_script(dev, tmp):
     rows = [_eval_f32_row("slab_group_sums_f32.serving_script", path, plan,
                           img, rgb, sus_counts["slab_group_sums_f32"],
                           SERVING_SUSTAINED + 1)]
-    (_, _, nbins), (ids, mask) = next(iter(stage2.items()))
-    rows.append(_recorded_bh_row("block_histogram.serving_script", path, ids,
-                                 mask, nbins, sus_counts["block_histogram"],
-                                 SERVING_SUSTAINED + 1))
+    rows += _stage2_rows("serving_script", path, stage2, splats, sus_counts,
+                         SERVING_SUSTAINED + 1)
     return rows
 
 
 def phase_plan_lifecycle_script(dev, tmp):
     """scripts/measure_plan_lifecycle_cuda.py's main at 60,000 points,
-    1024x512, 3 queries: --sync (the f32 plan resident from q0, one f32
+    1024x512, LIFECYCLE_QUERIES queries: --sync (the f32 plan resident from q0, one f32
     slab launch a plan group a query) and the background default (the plan
     resident by the last query, the f32 kernel launched on the queries
     after it); the f32 kernel then held against its plain version on the
@@ -4490,7 +4607,7 @@ def phase_plan_lifecycle_script(dev, tmp):
         groups = len(calls[0][1].fields) if calls else 0
         on_plan = sum(r.startswith("stage 1 f32 slab plan")
                       for r in out["routes"])
-        if label == "sync" and resident != [True] * 3:
+        if label == "sync" and resident != [True] * LIFECYCLE_QUERIES:
             raise AssertionError(f"--sync: plan resident {resident}")
         if not resident[-1]:
             raise AssertionError(f"{label}: no plan by the last query")
@@ -4498,7 +4615,8 @@ def phase_plan_lifecycle_script(dev, tmp):
                 and counts["slab_group_sums_compact"] == 0
                 and counts["slab_group_sums_q8"] == 0
                 and (label != "sync"
-                     or counts["slab_group_sums_f32"] == 3 * groups)):
+                     or counts["slab_group_sums_f32"]
+                    == LIFECYCLE_QUERIES * groups)):
             raise AssertionError(f"{label}: launches {counts}, routes "
                                  f"{out['routes']}")
         runs[label] = (out, counts)
@@ -4507,7 +4625,7 @@ def phase_plan_lifecycle_script(dev, tmp):
     return [_eval_f32_row(
         "slab_group_sums_f32.plan_lifecycle",
         f"measure_plan_lifecycle_cuda --sync {' '.join(LIFECYCLE_ARGS)}",
-        plan, img, rgb, counts["slab_group_sums_f32"], 3)]
+        plan, img, rgb, counts["slab_group_sums_f32"], LIFECYCLE_QUERIES)]
 
 
 _SHARDED_WORKER = """
@@ -4557,7 +4675,7 @@ def phase_sharded_restart_script(dev, tmp):
             slab_group_sums_compact=0, slab_group_sums_q8=0))
         runs.append(out)
     first, second = runs
-    n_libs = 5 if dev.type == "cuda" else 1
+    n_libs = 6 if dev.type == "cuda" else 1
     if (first["restart"], second["restart"]) != (False, True):
         raise AssertionError(f"sharded restart: restart "
                              f"{first['restart']}, {second['restart']}")

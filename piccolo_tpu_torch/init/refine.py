@@ -3,9 +3,12 @@ piccolo_tpu.init.refine).
 
 Stage 2 scores a candidate by rendering the cloud's colour bins at its pose
 (a z-buffered splat) and intersecting per-block histograms of that render
-with the query image's.  The block histograms always go through the
-``kernels.block_histogram`` wrapper, which launches the CUDA kernel for
-tensors on the card and runs the plain version for tensors on the CPU.
+with the query image's.  The live splat's block counts come from the
+``kernels.splat_hist`` wrapper (the kernel pair on the card, the plain
+splat and block histograms on the CPU); winner-bin planes (a HistPlan's,
+the mesh's decoded keys) are counted by the ``kernels.block_histogram``
+wrapper.  Both wrappers launch their CUDA kernels for tensors on the card
+and run their plain versions for tensors on the CPU.
 
 Deliberate behaviour deltas from the reference (shared with the JAX
 package): empty-mask candidates score +inf, and every block is computed
@@ -24,10 +27,18 @@ import torch
 from ..device import as_tensor, on_card, resolve_device
 from ..kernels.block_histogram import block_histogram
 from ..kernels.slab_sampling import make_pairs
-from ..loss import Pose, sampling_loss_packed, transform_cloud
+# _ATTR_BITS and _splat_keys are also the mesh's (parallel/fused.py)
+from ..kernels.splat_hist import (
+    ATTR_BITS as _ATTR_BITS,
+    bin_rows,
+    splat_bins as _splat_bins,
+    splat_block_counts,
+    splat_keys as _splat_keys,
+)
+from ..loss import Pose, sampling_loss_packed
 from ..ops.histogram import bin_ids, block_histograms
-from ..ops.pano import attr_min_decode, attr_min_keys
 from ..ops.sampling import pack_bilinear_blocks
+from ..utils import profiling
 from .candidates import generate_rot_points, generate_trans_points
 
 __all__ = [
@@ -39,7 +50,6 @@ __all__ = [
 
 _HIST_BINS = (8, 8, 8)  # reference utils.py:531
 _NB = math.prod(_HIST_BINS)
-_ATTR_BITS = 10  # bins 0..512, the background sentinel included
 
 SUPPORTED_CRITERIA = ("loss_histogram", "loss")
 
@@ -148,23 +158,15 @@ def _point_bins(rgb, nb):
     return torch.where(black, torch.full_like(bins, nb), bins)
 
 
-def _block_grid(H, W, sh, sw, img_mask):
-    """The valid-pixel selector (nonzero query pixels inside the block grid)
-    and the (k, H*W) -> (k, sh*sw, bh*bw) regrouping."""
+def _pix_ok(img_mask, sh, sw):
+    """(H*W,) the pixels a block histogram counts: nonzero query pixels
+    inside the block grid."""
+    H, W = img_mask.shape
     bh, bw = H // sh, W // sw
     dev = img_mask.device
     in_grid = ((torch.arange(H, device=dev)[:, None] // bh < sh)
                & (torch.arange(W, device=dev)[None, :] // bw < sw))
-    pix_ok = (img_mask & in_grid).reshape(-1)
-
-    def block_layout(flat):
-        k = flat.shape[0]
-        return (flat.reshape(k, H, W)[:, :sh * bh, :sw * bw]
-                .reshape(k, sh, bh, sw, bw)
-                .permute(0, 1, 3, 2, 4)
-                .reshape(k, sh * sw, bh * bw))
-
-    return pix_ok, block_layout
+    return (img_mask & in_grid).reshape(-1)
 
 
 @dataclasses.dataclass
@@ -172,8 +174,8 @@ class _QuerySide:
     img_hn: torch.Tensor  # (sh*sw, nb) normalised query block histograms
     img_c: torch.Tensor  # (sh*sw,) query pixel counts
     middle: torch.Tensor  # (sh*sw,) block rows 1..sh-2
-    pix_ok: torch.Tensor
-    block_layout: object
+    pix_ok: torch.Tensor  # (H*W,) see _pix_ok
+    grid: Tuple[int, int, int, int]  # H, W, sh, sw
     n_blocks: int
 
 
@@ -184,21 +186,13 @@ def _query_side(img, sh, sw) -> _QuerySide:
     img_hn = img_h / img_c.clamp_min(1e-12)[:, None]
     row_ids = torch.arange(sh * sw, device=img.device) // sw
     middle = (row_ids >= 1) & (row_ids <= sh - 2)
-    pix_ok, block_layout = _block_grid(H, W, sh, sw, img_mask)
-    return _QuerySide(img_hn, img_c, middle, pix_ok, block_layout, sh * sw)
+    return _QuerySide(img_hn, img_c, middle, _pix_ok(img_mask, sh, sw),
+                      (H, W, sh, sw), sh * sw)
 
 
-def _score_from_pbin(pbin: torch.Tensor, q: _QuerySide) -> torch.Tensor:
+def _score_from_counts(ph: torch.Tensor, q: _QuerySide) -> torch.Tensor:
     """Blockwise histogram-intersection score of each candidate, (k,), from
-    its (k, H*W) per-pixel winner bins (a splat or a precomputed plane).
-    Out-of-range bins (no splat / sentinel) are masked out either way."""
-    k = pbin.shape[0]
-    valid = (pbin >= 0) & (pbin < _NB) & q.pix_ok
-    ids = q.block_layout(pbin.clamp(0, _NB - 1).to(torch.int32))
-    msk = q.block_layout(valid.to(torch.float32))
-    ph = block_histogram(ids.reshape(k * q.n_blocks, -1).contiguous(),
-                         msk.reshape(k * q.n_blocks, -1).contiguous(), _NB)
-    ph = ph.reshape(k, q.n_blocks, _NB)
+    its (k, sh*sw, 512) block counts."""
     pc = ph.sum(-1)
     phn = ph / pc.clamp_min(1e-12)[..., None]
     inter = torch.minimum(phn, q.img_hn).sum(-1)
@@ -206,33 +200,30 @@ def _score_from_pbin(pbin: torch.Tensor, q: _QuerySide) -> torch.Tensor:
     return (inter * ok).sum(-1) / q.n_blocks
 
 
-def _splat_keys(xyz, rgb_bins, trans, ypr, pm, height, width):
-    """(k, H*W) packed z-buffer keys of the cloud's colour bins rendered at
-    k poses; a min over a split cloud's keys is the whole cloud's."""
-    cam = transform_cloud(_pose_batch(trans, ypr), xyz)
-    return attr_min_keys(cam, rgb_bins, _ATTR_BITS, (height, width), pm)
-
-
-def _splat_bins(xyz, rgb_bins, trans, ypr, pm, height, width):
-    """(k, H*W) winner colour bins of the cloud rendered at k poses."""
-    return attr_min_decode(
-        _splat_keys(xyz, rgb_bins, trans, ypr, pm, height, width), _ATTR_BITS)
+def _score_from_pbin(pbin: torch.Tensor, q: _QuerySide) -> torch.Tensor:
+    """:func:`_score_from_counts` from (k, H*W) per-pixel winner bins (a
+    HistPlan's planes or the mesh's decoded keys), counted by the block
+    histogram.  Out-of-range bins (no splat / sentinel) are masked out."""
+    k = pbin.shape[0]
+    ph = block_histogram(*bin_rows(pbin, q.pix_ok, *q.grid), _NB)
+    return _score_from_counts(ph.reshape(k, q.n_blocks, _NB), q)
 
 
 def hist_scores_core(img, xyz, rgb, trans, ypr, pm, num_split_h: int,
                      num_split_w: int, chunk: int) -> torch.Tensor:
     """Histogram-trim score per candidate (higher is better) from a live
-    splat; ``chunk`` candidates are splatted at a time, then one batched
-    block histogram scores them all."""
+    splat: the candidates' block counts, ``chunk`` candidates splatted at a
+    time (``kernels.splat_hist``), then the intersection with the query's.
+    Counts ``stage2.splat_kernel`` or ``stage2.splat_plain`` (n:
+    candidates)."""
     H, W, _ = img.shape
     q = _query_side(img, num_split_h, num_split_w)
-    rgb_bins = _point_bins(rgb, _NB)
-    pbin = torch.cat([
-        _splat_bins(xyz, rgb_bins, trans[c:c + chunk], ypr[c:c + chunk], pm,
-                    H, W)
-        for c in range(0, trans.shape[0], chunk)
-    ])
-    return _score_from_pbin(pbin, q)
+    counts = splat_block_counts(xyz, _point_bins(rgb, _NB), trans, ypr, pm,
+                                q.pix_ok, H, W, num_split_h, num_split_w,
+                                chunk)
+    profiling.count("stage2.splat_kernel" if counts.is_cuda
+                    else "stage2.splat_plain", trans.shape[0])
+    return _score_from_counts(counts, q)
 
 
 def hist_scores(img, xyz, rgb, trans, ypr, point_mask=None, *,

@@ -37,7 +37,7 @@ __all__ = ["load_library", "load_host_library", "build_all", "build_sources",
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNEL_SOURCES = ("block_histogram", "descent_step", "masked_histogram",
-                  "slab_sampling")
+                  "slab_sampling", "splat_hist")
 
 # -fmad=false: no multiply-add contraction, so each sample's arithmetic
 # rounds exactly like the plain PyTorch version's separate mul and add

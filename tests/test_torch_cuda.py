@@ -18,8 +18,8 @@ leave alone, and pruned survivors and batched tracking streams stay within
 one-card mesh that repeats cuda:0 gives graphed and eager descents the same
 bits and the single-device query's starts and winner; a two-card mesh gives
 the one-card mesh's bits, and ``query_devices = 2`` serves on both cards
-(these two skip on one card).  The executable cache builds the four
-kernel libraries and the JPEG codec, then hits all five; a graph captured
+(these two skip on one card).  The executable cache builds the five
+kernel libraries and the JPEG codec, then hits all six; a graph captured
 under ``utils.maybe_trace`` gives the bits of one captured without it.
 The descent step's two kernels (``kernels/descent_step.py``) at the
 OmniScenes cell's shapes (240,000 points, a 2048x1024 panorama, 6 starts on
@@ -887,8 +887,8 @@ def test_served_query_devices_on_two_cards(two_cards):
 
 
 def test_exec_cache_builds_then_hits_on_the_card(dev, tmp_path):
-    """A fresh executable-cache directory builds the four kernel libraries
-    and the JPEG codec; a second warm-up loads all five."""
+    """A fresh executable-cache directory builds the five kernel libraries
+    and the JPEG codec; a second warm-up loads all six."""
     from piccolo_tpu_torch.kernels import _build
     from piccolo_tpu_torch.utils import exec_cache
 
@@ -898,7 +898,7 @@ def test_exec_cache_builds_then_hits_on_the_card(dev, tmp_path):
         first = exec_cache.warm(tmp_path, dev)
         names = sorted(n.split("-")[0] for n in first["built"])
         assert names == ["block_histogram", "descent_step", "jpeg_codec",
-                         "masked_histogram", "slab_sampling"]
+                         "masked_histogram", "slab_sampling", "splat_hist"]
         assert not first["hits"]
         exec_cache.clear_memo()
         second = exec_cache.warm(tmp_path, dev)
